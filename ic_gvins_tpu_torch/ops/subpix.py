@@ -1,0 +1,82 @@
+"""Subpixel corner refinement, cv::cornerSubPix (kernel K2).
+
+Replaces ``ic_gvins_tpu/ops/pallas_subpix.py:subpix_pallas`` with the
+semantics of the jnp path of ``ic_gvins_tpu/vision/features.py:corner_subpix``
+(unpadded image, clip-shifted 13x13 patch, no block guard). The CUDA kernel
+is ``csrc/subpix.cu``; its source note says what bounds it on the H100 and
+how the design answers that. ``subpix_plain`` is the same function in plain
+PyTorch: the CPU path and the kernel's reference.
+"""
+
+import torch
+
+from . import _build
+
+HALF = 5          # 11x11 window (cv::Size(5,5))
+ITERS = 20        # cv::TermCriteria(COUNT + EPS, 20, 0.01) — tracking.cc:625
+EPS = 0.01
+
+
+def subpix_plain(img, corners, valid):
+    """img: (H, W) f32; corners: (N, 2) f32 xy; valid: (N,) bool.
+    Returns refined (N, 2) f32."""
+    from ..vision.pyramid import extract_patch
+
+    d = torch.arange(2 * HALF + 1, dtype=torch.float32, device=img.device) - HALF
+    w1 = torch.exp(-((d / HALF) * (d / HALF)))
+    wgt = w1[:, None] * w1[None, :]
+    dxg, dyg = d[None, None, :], d[None, :, None]
+
+    pos = corners
+    active = torch.ones(corners.shape[0], dtype=torch.bool, device=img.device)
+    for _ in range(ITERS):
+        patch = extract_patch(img, pos, HALF + 1)  # (N, 13, 13)
+        gx = 0.5 * (patch[:, 1:-1, 2:] - patch[:, 1:-1, :-2])
+        gy = 0.5 * (patch[:, 2:, 1:-1] - patch[:, :-2, 1:-1])
+        wxx = wgt * gx * gx
+        wyy = wgt * gy * gy
+        wxy = wgt * gx * gy
+        gxx = torch.sum(wxx, dim=(1, 2))
+        gyy = torch.sum(wyy, dim=(1, 2))
+        gxy = torch.sum(wxy, dim=(1, 2))
+        bx = torch.sum(wxx * dxg, dim=(1, 2)) + torch.sum(wxy * dyg, dim=(1, 2))
+        by = torch.sum(wxy * dxg, dim=(1, 2)) + torch.sum(wyy * dyg, dim=(1, 2))
+        det = gxx * gyy - gxy * gxy
+        safe = torch.abs(det) > 1e-12
+        den = torch.where(safe, det, torch.ones_like(det))
+        zero = torch.zeros_like(det)
+        ddx = torch.where(safe, (gyy * bx - gxy * by) / den, zero)
+        ddy = torch.where(safe, (gxx * by - gxy * bx) / den, zero)
+        step = torch.clamp(torch.stack([ddx, ddy], dim=1), -1.0, 1.0)
+        # cv TermCriteria(COUNT + EPS, 20, 0.01): apply the step, stop once
+        # it fell below eps (tracking.cc:625)
+        pos = torch.where(active[:, None], pos + step, pos)
+        active = active & (torch.linalg.vector_norm(step, dim=1) >= EPS)
+    # keep refinement only if it stayed close (guards divergence)
+    moved = torch.linalg.vector_norm(pos - corners, dim=1)
+    out = torch.where((moved < HALF)[:, None], pos, corners)
+    return torch.where(valid[:, None], out, corners)
+
+
+def subpix(img, corners, valid):
+    """Kernel K2 wrapper. CPU tensors take ``subpix_plain``; CUDA tensors
+    launch ``csrc/subpix.cu`` (or raise)."""
+    if img.device.type == "cpu":
+        return subpix_plain(img, corners, valid)
+    H, W = img.shape
+    N = corners.shape[0]
+    if corners.shape != (N, 2) or valid.shape != (N,):
+        raise ValueError("subpix: shape mismatch")
+    if (img.dtype, corners.dtype, valid.dtype) != (torch.float32, torch.float32, torch.bool):
+        raise TypeError("subpix: img and corners must be float32, valid bool")
+    if H < 2 * HALF + 4 or W < 2 * HALF + 4:
+        raise ValueError("subpix: image smaller than the 14x14 sampling slice")
+    _build.require_cuda("subpix", img, corners, valid)
+    out = torch.empty((N, 2), dtype=torch.float32, device=img.device)
+    _build.launch("subpix", img.data_ptr(), H, W, corners.data_ptr(), valid.data_ptr(),
+                  out.data_ptr(), N, _build.stream_ptr(img))
+    subpix.launches += 1
+    return out
+
+
+subpix.launches = 0
