@@ -11,18 +11,31 @@ of JAX. Phases, in order; any failure raises and the script exits nonzero:
 
 1. the card: ``torch.cuda.is_available()``, and its name and power limit
    from nvidia-smi;
-2. build the three CUDA kernels and report the build time and ptxas usage;
+2. build the three CUDA kernels (one nvcc per source, in parallel) and
+   report the build time and ptxas usage;
 3. each kernel against its plain PyTorch version on the card, on a seeded
-   synthetic 1278x1022 scene at the slice's shapes, timed with CUDA events;
+   synthetic 1278x1022 scene at the slice's shapes, timed with CUDA events,
+   with its bound (bytes over 3.35 TB/s or float32 operations over
+   67 TFLOP/s, the larger); the fused LK also on a near-border pair whose
+   flow carries windows past the image edge;
 4. the slice: >= 30 rendered 1278x1022 frames with known camera poses
    through ``Tracker.track`` (device="cuda", track_max_features=200), the
    keyframes inserted into the ``VisualMap`` as the engine does; the
-   launch counters are zeroed just before and read just after;
+   launch counters are zeroed just before and read just after; then a
+   second pass with the ``_pyr_body`` and ``_lk_stage`` stages synchronized
+   on both sides and timed;
 5. the same port on the CPU (the plain versions) against the CUDA run on a
    small 320x240 sequence: identical track states and keyframe flags.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --stages`` runs only phases 1 and 4's two passes
+(no kernel checks) and prints their numbers as one JSON line. It uses only
+``Tracker`` and the two stage functions, so it can time another checkout
+of the port: ``python3 -c "import sys, runpy; sys.path.insert(0, 'OTHER');
+sys.argv = ['chip_smoke.py', '--stages']; runpy.run_path('chip_smoke.py',
+run_name='__main__')"``.
 """
 
 import json
@@ -41,6 +54,8 @@ DEVICE = "cuda"
 # Tracker statics at this size: F_MAX, block rows, block cols, per block,
 # min pixel distance (vision/tracking.py:135-147 of the JAX package)
 SLICE_STATICS = (256, 5, 6, 7, 62)
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM, on-chip-measurement guide
+F32_FLOPS_PER_S = 67e12      # float32 outside the tensor cores
 CFG = dict(track_check_histogram=False, track_min_parallax=20, track_max_interval=0.5,
            track_max_features=200, reprojection_error_std=1.5, optimize_windows_size=10)
 
@@ -103,6 +118,46 @@ def run_tracker(trk_mod, map_mod, tracker, vmap, images, poses):
 # timing
 # --------------------------------------------------------------------------
 
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    float32 operations over the peak float32 rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def timed_stages(torch, trk, map_mod, tracker, vmap, images, poses):
+    """The slice again with ``_pyr_body`` and ``_lk_stage`` synchronized on
+    both sides: their ms per call (host clock), and the frame times."""
+    times = {"_pyr_body": [], "_lk_stage": []}
+    originals = {name: getattr(trk, name) for name in times}
+
+    def wrap(name):
+        fn = originals[name]
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return timed
+
+    for name in times:
+        setattr(trk, name, wrap(name))
+    try:
+        rows = run_tracker(trk, map_mod, tracker, vmap, images, poses)
+    finally:
+        for name, fn in originals.items():
+            setattr(trk, name, fn)
+    return {name: dict(calls=len(t), median_ms=float(np.median(t)), total_ms=float(np.sum(t)))
+            for name, t in times.items()}, [r[4] for r in rows]
+
+
 def cuda_ms(torch, fn, reps=20, warmup=3, queued=False):
     """Mean time per fn() call over reps back-to-back calls, from CUDA events.
 
@@ -125,6 +180,72 @@ def cuda_ms(torch, fn, reps=20, warmup=3, queued=False):
     return start.elapsed_time(end) / reps
 
 
+def the_card(torch):
+    """Print and return nvidia-smi's name and power limit of the card."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    card = smi.splitlines()[0]
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    return card
+
+
+def slice_world(cam):
+    camera = cam.PinholeCamera.from_config(KAIST_INTRINSIC, KAIST_DISTORTION, [W, H])
+    spans = ((-12.0, 17.0), (-9.0, 9.0), (7.0, 20.0))
+    return (camera, *sequence(cam, camera, N_FRAMES, H, W, SEED, 700, spans, 2.5, 10))
+
+
+def frame_stats(track_ms):
+    ms = np.asarray(track_ms)
+    return dict(frame_ms_median=float(np.median(ms)), frame_ms_median_2plus=float(np.median(ms[2:])),
+                frame_ms_p90_2plus=float(np.percentile(ms[2:], 90)))
+
+
+def stages_only(torch):
+    """Phase 1 and phase 4's two passes, through Tracker alone."""
+    from ic_gvins_tpu_torch.engine.config import parse_config
+    from ic_gvins_tpu_torch.vision import camera as cam
+    from ic_gvins_tpu_torch.vision import map as vmap_mod
+    from ic_gvins_tpu_torch.vision import tracking as trk
+
+    card = the_card(torch)
+    camera, _, poses, images = slice_world(cam)
+    cfg = parse_config(CFG)
+    vmap = vmap_mod.VisualMap(cfg.optimize_windows_size)
+    rows = run_tracker(trk, vmap_mod, trk.Tracker(camera, vmap, cfg, device=DEVICE), vmap,
+                       images, poses)
+    vmap = vmap_mod.VisualMap(cfg.optimize_windows_size)
+    stages, timed_ms = timed_stages(torch, trk, vmap_mod, trk.Tracker(camera, vmap, cfg, device=DEVICE),
+                                    vmap, images, poses)
+    print(json.dumps(dict(card=card, **frame_stats([r[4] for r in rows]), stages=stages,
+                          timed_frame_ms_median=float(np.median(timed_ms)))))
+    return 0
+
+
+def near_border_pair(torch, pyramid, base, sign, n=256):
+    """Level 0 ``base`` and its copy shifted by (7.3, 6.2) px * sign; n
+    slots 6-15 px from the edge the flow points to (half near the x edge,
+    half near the y edge), guesses within 0.4 px of the flow: the pattern of
+    tests/test_torch_lk.py, at the slice's size."""
+    dev = base.device
+    Hb, Wb = base.shape
+    rng = np.random.default_rng(SEED + (1 if sign > 0 else 2))
+    flow = np.array([7.3, 6.2]) * sign
+    yy, xx = torch.meshgrid(torch.arange(Hb, dtype=torch.float32, device=dev),
+                            torch.arange(Wb, dtype=torch.float32, device=dev), indexing="ij")
+    shifted = pyramid.bilinear_sample(base, torch.stack([xx - flow[0], yy - flow[1]], dim=-1))
+    dist = rng.uniform(6.0, 15.0, (n, 2))
+    pts = rng.uniform(20.0, [Wb - 20.0, Hb - 20.0], (n, 2))
+    near = np.where(sign > 0, [Wb - 1.0, Hb - 1.0] - dist, dist)
+    pts[: n // 2, 0] = near[: n // 2, 0]
+    pts[n // 2 :, 1] = near[n // 2 :, 1]
+    pred = pts + flow + rng.uniform(-0.4, 0.4, (n, 2))
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (pyramid.build_pyramid(base), pyramid.build_pyramid(shifted), torch.tensor(pts, **f32),
+            torch.tensor(pred, **f32), torch.ones(n, dtype=torch.bool, device=dev))
+
+
 def main():
     import torch
 
@@ -133,6 +254,10 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
               file=sys.stderr)
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--stages"]:
+        return stages_only(torch)
     from ic_gvins_tpu_torch.engine.config import parse_config
     from ic_gvins_tpu_torch.ops import _build
     from ic_gvins_tpu_torch.ops import clahe as kclahe
@@ -144,14 +269,8 @@ def main():
     from ic_gvins_tpu_torch.vision import pyramid
     from ic_gvins_tpu_torch.vision import tracking as trk
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    card = smi.splitlines()[0]
-    print(card)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    card = the_card(torch)
 
     # ---- phase 2: build ------------------------------------------------
     t0 = time.perf_counter()
@@ -164,20 +283,22 @@ def main():
             print(f"[build] {line.strip()}")
 
     # ---- phase 3: kernels against their plain versions ---------------------
-    camera = cam.PinholeCamera.from_config(KAIST_INTRINSIC, KAIST_DISTORTION, [W, H])
-    spans = ((-12.0, 17.0), (-9.0, 9.0), (7.0, 20.0))
-    pts_w, poses, images = sequence(cam, camera, N_FRAMES, H, W, SEED, 700, spans, 2.5, 10)
+    camera, pts_w, poses, images = slice_world(cam)
     img0 = torch.tensor(images[0], dtype=torch.float32, device=dev)
     img1 = torch.tensor(images[1], dtype=torch.float32, device=dev)
     records = {}
 
-    def record(name, source, replaces, err, fn, plain_fn):
+    def record(name, source, replaces, err, fn, plain_fn, n_bytes, n_ops):
         ms, plain_ms = cuda_ms(torch, fn), cuda_ms(torch, plain_fn)
         device_ms = cuda_ms(torch, fn, queued=True)
+        bound_ms, bound_by = bound(n_bytes, n_ops)
         records[name] = dict(name=name, route="cuda", source=source, replaces=replaces,
-                             max_abs_err=float(err), ms=float(ms), plain_ms=float(plain_ms))
+                             max_abs_err=float(err), ms=float(ms), plain_ms=float(plain_ms),
+                             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                             device_ms=float(device_ms))
         print(f"[kernel] {name}: max_abs_err {err:.3g}  kernel {ms:.4f} ms per call "
-              f"(device-only {device_ms:.4f} ms)  plain {plain_ms:.4f} ms  ({card})")
+              f"(device-only {device_ms:.4f} ms)  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
+              f"by {bound_by} ({n_bytes} B, {n_ops} float32 ops)  ({card})")
 
     # K3 CLAHE apply, on the frame's own tables
     tables = pyramid.clahe_tables(img0)
@@ -187,11 +308,14 @@ def main():
     d = (out_k - out_p).abs()
     frac = float((d <= 1e-3).float().mean())
     assert frac >= 0.999 and float(d.max()) <= 1e-2, f"K3 clahe_apply: {frac} within 1e-3, max {float(d.max())}"
+    v_img, lut = tables[0], tables[1]
+    # per pixel: 4 weight products, 4 weighted taps, 3 sums (the blend)
     record("clahe_apply", "ic_gvins_tpu_torch/csrc/clahe_apply.cu",
            "ic_gvins_tpu/ops/pallas_clahe.py:64", d.max(),
-           lambda: kclahe.clahe_apply(*tables), lambda: kclahe.clahe_apply_plain(*tables))
+           lambda: kclahe.clahe_apply(*tables), lambda: kclahe.clahe_apply_plain(*tables),
+           nbytes(v_img, lut, out_k), 11 * v_img.numel())
 
-    # K1 LK level: the main path's cascade (256 slots, 4 levels, frame 0 -> 1)
+    # K1 fused LK: the main path's call (256 slots, 4 levels, both directions)
     pyr0 = pyramid.build_pyramid(pyramid.clahe(img0))
     pyr1 = pyramid.build_pyramid(pyramid.clahe(img1))
     c, _, v = feat.detect_blockwise(pyr0[0], torch.ones_like(pyr0[0]),
@@ -200,26 +324,43 @@ def main():
     pts = c[:256].contiguous()
     valid = v[:256].contiguous()
     assert pts.shape == (256, 2) and int(valid.sum()) > 150, int(valid.sum())
-    guess = pts / 8.0
-    level_args, errs, agree = [], [], []
-    for lvl in range(3, -1, -1):
-        args = (pyr0[lvl], pyr1[lvl], (pts / 2.0**lvl).contiguous(), guess.contiguous(), valid)
-        level_args.append(args)
-        (ok_pts, ok_k), (pl_pts, ok_p) = klk.lk_level(*args), klk.lk_level_plain(*args)
-        agree.append(float((ok_k == ok_p).float().mean()))
+    lk_args = (pyr0, pyr1, pts, pts, valid)
+
+    def check_lk(tag, args, directions, min_joint):
+        (fk, ok_k), (fp, ok_p) = (klk.lk_pyr(*args, directions=directions),
+                                  klk.lk_pyr_plain(*args, directions=directions))
+        agree = float((ok_k == ok_p).float().mean())
         both = ok_k & ok_p
-        e = torch.linalg.vector_norm(ok_pts[both] - pl_pts[both], dim=1)
+        e = torch.linalg.vector_norm(fk[both] - fp[both], dim=1)
         med = float(e.median()) if e.numel() else float("nan")
-        print(f"[kernel] lk_level level {lvl} {tuple(args[0].shape)}: ok agree {agree[-1]:.4f}, "
+        print(f"[kernel] lk_pyr {tag}, {directions} direction(s): ok agree {agree:.4f}, "
               f"jointly ok {int(both.sum())}, median endpoint diff {med:.2e} px")
-        assert agree[-1] >= 0.99 and e.numel() > 50 and med < 1e-3, f"K1 level {lvl}"
-        errs.append(float(e.max()))
-        guess = pl_pts * 2.0 if lvl > 0 else pl_pts
-    record("lk_level", "ic_gvins_tpu_torch/csrc/lk_level.cu",
-           "ic_gvins_tpu/ops/pallas_lk.py:309", max(errs),
-           lambda: [klk.lk_level(*a) for a in level_args],
-           lambda: [klk.lk_level_plain(*a) for a in level_args])
-    print("[kernel] lk_level times are one pyr_lk direction: the 4 level calls together")
+        assert agree >= 0.99 and e.numel() >= min_joint and med < 1e-3, f"K1 {tag} {directions}"
+        return (float(e.max()) if e.numel() else 0.0), fp
+
+    errs = [check_lk("frame 0->1", lk_args, n, 50)[0] for n in (1, 2)]
+    for sign in (1.0, -1.0):
+        args = near_border_pair(torch, pyramid, pyr0[0], sign)
+        for n, min_joint in ((1, 20), (2, 8)):
+            err, fp = check_lk(f"near-border {sign:+.0f}", args, n, min_joint)
+            errs.append(err)
+        outside = ((fp[:, 0] < 0) | (fp[:, 0] > W - 1) | (fp[:, 1] < 0) | (fp[:, 1] > H - 1))
+        print(f"[kernel] lk_pyr near-border {sign:+.0f}: {int(outside.sum())} slots tracked past "
+              f"the image edge (clip-shifted windows)")
+        assert bool(outside.any()), "near-border pair never reached the clip-shift path"
+    iters = torch.zeros(256, dtype=torch.int32, device=dev)
+    _, st_f = klk.lk_pyr(*lk_args, directions=1)
+    klk.lk_pyr(*lk_args, iters=iters)
+    levels_run = 4 * (int(valid.sum()) + int(st_f.sum()))
+    print(f"[kernel] lk_pyr frame 0->1: {int(iters.sum())} LK steps over {levels_run} slot-levels; "
+          f"longest slot chain {int(iters.max())} steps")
+    # a slot-level: 529 bilinear samples (7 ops) + 441 x (4 gradient + 6 G) ops;
+    # a step: 441 x (7 sample + 1 diff + 4 b) ops
+    record("lk_pyr", "ic_gvins_tpu_torch/csrc/lk_pyr.cu", "ic_gvins_tpu/ops/pallas_lk.py:309",
+           max(errs), lambda: klk.lk_pyr(*lk_args), lambda: klk.lk_pyr_plain(*lk_args),
+           nbytes(*pyr0, *pyr1, pts, pts, valid) + 256 * 9,
+           levels_run * (529 * 7 + 441 * 10) + int(iters.sum()) * 441 * 12)
+    print("[kernel] lk_pyr times are one frame's call: 4 levels, both directions")
 
     # K2 subpix: the slice's detection (5x6 blocks x 7 corners, min distance 62)
     c, _, v = feat.detect_blockwise(pyr0[0], torch.ones_like(pyr0[0]),
@@ -232,8 +373,10 @@ def main():
     med, within = float(e.median()), float((e <= 0.05).float().mean())
     print(f"[kernel] subpix {tuple(c.shape)}: median diff {med:.2e} px, within 0.05 px {within:.4f}")
     assert med < 1e-3 and within >= 0.99, "K2 subpix"
+    # operations at the 20-step maximum: 169 samples x 7 + 121 x ~20 per step
     record("subpix", "ic_gvins_tpu_torch/csrc/subpix.cu", "ic_gvins_tpu/ops/pallas_subpix.py:204",
-           e.max(), lambda: ksubpix.subpix(*sp_args), lambda: ksubpix.subpix_plain(*sp_args))
+           e.max(), lambda: ksubpix.subpix(*sp_args), lambda: ksubpix.subpix_plain(*sp_args),
+           nbytes(*sp_args, out_k), int(v.sum()) * 20 * (169 * 7 + 121 * 20))
 
     # argmax tie-breaks: detection on the card equals the CPU on the same frame
     kw = dict(block_rows=5, block_cols=6, per_block=7, min_distance=62)
@@ -251,34 +394,53 @@ def main():
     tracker = trk.Tracker(camera, vmap, cfg, device=DEVICE)
     assert (tracker.F_MAX, tracker.block_rows, tracker.block_cols, tracker.per_block,
             tracker.min_pixel_distance) == SLICE_STATICS
-    wrappers = {"clahe_apply": kclahe.clahe_apply, "lk_level": klk.lk_level,
+    wrappers = {"clahe_apply": kclahe.clahe_apply, "lk_pyr": klk.lk_pyr,
                 "subpix": ksubpix.subpix}
+    lk_stage, lk_calls = trk._lk_stage, []
+
+    def counted_lk_stage(*args):
+        lk_calls.append(1)
+        return lk_stage(*args)
+
+    trk._lk_stage = counted_lk_stage
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.synchronize()
     t_slice = time.perf_counter()
-    rows = run_tracker(trk, vmap_mod, tracker, vmap, images, poses)
-    torch.cuda.synchronize()
+    try:
+        rows = run_tracker(trk, vmap_mod, tracker, vmap, images, poses)
+        torch.cuda.synchronize()
+    finally:
+        trk._lk_stage = lk_stage
     t_slice = time.perf_counter() - t_slice
     launches = {k: w.launches for k, w in wrappers.items()}
     states = [r[0] for r in rows]
     errs = np.array([np.linalg.norm(pts_w - lm.pos, axis=1).min() for lm in vmap.landmarks.values()])
-    track_ms = np.array([r[4] for r in rows])
+    stats = frame_stats([r[4] for r in rows])
     print(f"[slice] {len(rows)} frames {W}x{H} in {t_slice:.2f} s; states {states}")
     print(f"[slice] features per frame {[r[2] for r in rows]}")
     print(f"[slice] keyframes {len(vmap.keyframes)}, landmarks {len(vmap.landmarks)}, "
           f"landmark error median {np.median(errs) if len(errs) else float('nan'):.3f} m, "
           f"p25 {np.percentile(errs, 25) if len(errs) else float('nan'):.3f} m")
-    print(f"[slice] track_ms median {np.median(track_ms):.2f} (frames 2+: "
-          f"{np.median(track_ms[2:]):.2f}, p90 {np.percentile(track_ms[2:], 90):.2f}) ({card})")
-    print(f"[slice] launches {launches}")
+    print(f"[slice] track_ms median {stats['frame_ms_median']:.2f} (frames 2+: "
+          f"{stats['frame_ms_median_2plus']:.2f}, p90 {stats['frame_ms_p90_2plus']:.2f}) ({card})")
+    print(f"[slice] launches {launches}; LK stage calls {len(lk_calls)}")
     assert trk.TRACK_TRACKING in states, "tracker never reached TRACK_TRACKING"
     assert len(vmap.keyframes) >= 2, "fewer than 2 keyframes"
     assert len(vmap.landmarks) >= 50, "fewer than 50 landmarks"
     assert np.median(errs) < 0.6 and np.percentile(errs, 25) < 0.3, "landmarks far from truth"
     assert all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}"
+    assert launches["lk_pyr"] == len(lk_calls), "LK is not one launch per tracked frame"
     for k, n in launches.items():
         records[k]["launches"] = int(n)
+
+    vmap = vmap_mod.VisualMap(cfg.optimize_windows_size)
+    stages, timed_ms = timed_stages(torch, trk, vmap_mod, trk.Tracker(camera, vmap, cfg, device=DEVICE),
+                                    vmap, images, poses)
+    for name, st in stages.items():
+        print(f"[stages] {name}: {st['calls']} calls, median {st['median_ms']:.3f} ms per call "
+              f"(synchronized on both sides) ({card})")
+    print(f"[stages] frame median in that pass {np.median(timed_ms):.2f} ms")
 
     # ---- phase 5: the CPU plain path agrees with the CUDA run --------------
     small = cam.PinholeCamera.from_config([250.0, 250.0, 160.0, 120.0], [-0.05, 0.01, 0.0, 0.0],
@@ -295,7 +457,7 @@ def main():
         assert rg[:2] == rc[:2] and abs(rg[2] - rc[2]) <= 2 and abs(rg[3] - rc[3]) <= 2, (rg, rc)
     print(f"[small] 320x240 x14: CUDA and CPU states {[r[0] for r in out[DEVICE]]} agree")
 
-    print(json.dumps({"kernels": [records[k] for k in ("clahe_apply", "lk_level", "subpix")]}))
+    print(json.dumps({"kernels": [records[k] for k in ("clahe_apply", "lk_pyr", "subpix")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

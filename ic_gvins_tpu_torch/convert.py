@@ -20,7 +20,8 @@ def camera_from_vec(vec10, width, height):
     return PinholeCamera(*v, width=int(width), height=int(height))
 
 
-def pyramid_from_numpy(levels, device="cpu"):
+def pyramid_from_numpy(levels, device="cuda"):
     """A list of numpy pyramid levels -> the port's pyramid: contiguous f32
-    tensors on ``device``, copied (never aliased with the numpy buffers)."""
+    tensors on ``device`` (the card unless the caller asks for the CPU),
+    copied (never aliased with the numpy buffers)."""
     return [torch.tensor(np.asarray(lv), dtype=torch.float32, device=device) for lv in levels]

@@ -6,74 +6,117 @@
 // n = 3*dy + dx over the 3x3 neighbouring tiles (edge-clamped), with bf16
 // LUT entries and an f32 blend.
 //
-// What bounds it on the H100: its floor is memory. Each pixel reads one i32
-// and writes one f32 (~10 MB per 1278x1022 frame, ~3 us at 3.35 TB/s); the
-// 9 lookups hit shared memory. The TPU kernel received a precomputed
-// (T, 9, P) f32 weight tensor (~47 MB) and resolved the lookup as a nibble
-// one-hot matmul; here the weights are recomputed inline from the pixel
-// coordinate (the rule of pyramid.py:_tile_offset_weights) and the lookup
-// is a direct shared-memory read, so only the image itself crosses device
-// memory. This simple form runs well above that floor (~27 us on an NVIDIA
-// H100 80GB HBM3 at 700 W, PERF.md): per-pixel integer division and weight arithmetic,
-// the 9 KB LUT staging per tile, and 441 blocks on 132 SMs bound it now.
+// What bounds it on the H100: memory. Each pixel reads one i32 and writes
+// one f32, and the tables are 441 x 256 bf16 (10.7 MB per 1278x1022 frame,
+// 3.2 us at 3.35 TB/s); a dozen float operations a pixel is far below the
+// compute floor. The TPU kernel received a precomputed (T, 9, P) f32 weight
+// tensor (~47 MB) and resolved the lookup as a nibble one-hot matmul; here
+// the weights come from the pixel coordinate (the rule of
+// pyramid.py:_tile_offset_weights) and only the image crosses device memory.
+// To run near that floor the kernel must keep enough bytes in flight. What
+// bounds it now is the table reads: 7.9 us a 1278x1022 frame on an H100
+// 80GB HBM3 at 700 W, against 3.8 us for the same traversal writing the
+// gray value without the 4 lookups a pixel (PERF.md, tools/kernel_variants.py).
 //
-// Design: one block per tile. The block stages its 9 neighbour LUTs
-// (9 x 256 bf16 -> f32, 9 KB) in shared memory, then its threads stride
-// over the tile's pixels.
-#include <cuda_bf16.h>
-
+// Design: row-major traversal. A thread owns VEC = 2 adjacent columns (one
+// 8-byte int2 load and one float2 store per row; W even keeps every row
+// 8-byte aligned, else VEC = 1) for ROWS rows, and issues all ROWS loads
+// before it uses any. Along each axis only two of the three offset weights
+// can be nonzero, so a coordinate's weights fold into two (tile, weight)
+// taps: the column taps are computed once per thread, the row taps once per
+// row, and no pixel divides. A pixel then reads 4 LUT entries (through the
+// read-only cache: the 225 KB of tables stay in L2 and the taps of a warp
+// hit the same few L1 lines) instead of staging 9 tables per tile in shared
+// memory. The blend keeps the plain version's order and its separate
+// rounding of every product and sum (the zero weights it skips add +0), so
+// the result equals ops/clahe.py:clahe_apply_plain.
 #include "common.cuh"
 
 namespace {
 
 constexpr int NBINS = 256;
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;
+constexpr int ROWS = 8;
 
-// Blend weights over tile offsets {-1, 0, +1} for coordinate `c`: the f32
-// arithmetic of pyramid.py:_tile_offset_weights, step by step.
-__device__ __forceinline__ void offset_weights(int c, int tn, int tsize, float hi,
-                                               float w[3]) {
+// The two tiles that carry a coordinate's weight, in offset order, with
+// their weights; a tile is an index along the axis.
+struct Taps {
+    int lo, hi;
+    float wlo, whi;
+};
+
+// _tile_offset_weights for coordinate `c`, step by step in f32: the weights
+// over tile offsets {-1, 0, +1} (1 - f at the offset of i0, f at that of
+// i1, summed where they coincide), folded into Taps.
+__device__ __forceinline__ Taps taps(int c, int tn, int tsize, float hi) {
     float tf = ((static_cast<float>(c) - static_cast<float>(tsize) * 0.5f) + 0.5f) /
                static_cast<float>(tsize);
     tf = fminf(fmaxf(tf, 0.0f), hi);
-    float f0 = floorf(tf);
-    int i0 = static_cast<int>(f0);
-    float f = tf - f0;
-    int own = c / tsize;
-    int i1 = min(i0 + 1, tn - 1);
-    w[0] = w[1] = w[2] = 0.0f;
-    w[icg::clampi(i0 - own, -1, 1) + 1] += 1.0f - f;
-    w[icg::clampi(i1 - own, -1, 1) + 1] += f;
+    const float f0 = floorf(tf);
+    const int i0 = static_cast<int>(f0);
+    const float f = tf - f0;
+    const int own = c / tsize;
+    const int i1 = min(i0 + 1, tn - 1);
+    const int o0 = icg::clampi(i0 - own, -1, 1), o1 = icg::clampi(i1 - own, -1, 1);
+    const int t0 = icg::clampi(own + o0, 0, tn - 1), t1 = icg::clampi(own + o1, 0, tn - 1);
+    if (o0 == o1) return Taps{t0, t0, __fadd_rn(1.0f - f, f), 0.0f};
+    if (o0 < o1) return Taps{t0, t1, 1.0f - f, f};
+    return Taps{t1, t0, f, 1.0f - f};
 }
 
+__device__ __forceinline__ float lut_at(const unsigned short* lut, int tile, int val) {
+    return __uint_as_float(static_cast<unsigned>(__ldg(lut + tile * NBINS + val)) << 16);
+}
+
+template <int VEC>
 __global__ void __launch_bounds__(THREADS)
-clahe_apply_kernel(const int32_t* __restrict__ v, const __nv_bfloat16* __restrict__ lut,
+clahe_apply_kernel(const int32_t* __restrict__ v, const unsigned short* __restrict__ lut,
                    float* __restrict__ out, int H, int W, int ty, int tx, int th, int tw,
                    float hi_y, float hi_x) {
-    __shared__ float s_lut[9][NBINS];
-    const int t = blockIdx.x;
-    const int ti = t / tx, tj = t % tx;
-    for (int i = threadIdx.x; i < 9 * NBINS; i += THREADS) {
-        const int n = i / NBINS, b = i % NBINS;
-        const int ni = icg::clampi(ti + n / 3 - 1, 0, ty - 1);
-        const int nj = icg::clampi(tj + n % 3 - 1, 0, tx - 1);
-        s_lut[n][b] = __bfloat162float(lut[(ni * tx + nj) * NBINS + b]);
+    const int x = (blockIdx.x * THREADS + threadIdx.x) * VEC;
+    const int y0 = blockIdx.y * ROWS;
+    if (x >= W) return;
+
+    int val[ROWS][VEC];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+        const int y = min(y0 + r, H - 1);  // rows past H are loaded, never stored
+        const int32_t* src = v + static_cast<size_t>(y) * W + x;
+        if constexpr (VEC == 2) {
+            const int2 p = __ldg(reinterpret_cast<const int2*>(src));
+            val[r][0] = p.x;
+            val[r][1] = p.y;
+        } else {
+            val[r][0] = __ldg(src);
+        }
     }
-    __syncthreads();
-    for (int p = threadIdx.x; p < th * tw; p += THREADS) {
-        const int y = ti * th + p / tw;
-        const int x = tj * tw + p % tw;
-        if (y >= H || x >= W) continue;
-        float wr[3], wc[3];
-        offset_weights(y, ty, th, hi_y, wr);
-        offset_weights(x, tx, tw, hi_x, wc);
-        const int val = icg::clampi(v[y * W + x], 0, NBINS - 1);
-        float acc = 0.0f;
+    Taps col[VEC];
 #pragma unroll
-        for (int dy = 0; dy < 3; ++dy)
+    for (int k = 0; k < VEC; ++k) col[k] = taps(x + k, tx, tw, hi_x);
+
 #pragma unroll
-            for (int dx = 0; dx < 3; ++dx) acc += (wr[dy] * wc[dx]) * s_lut[3 * dy + dx][val];
-        out[y * W + x] = acc;
+    for (int r = 0; r < ROWS; ++r) {
+        const int y = y0 + r;
+        if (y >= H) break;
+        const Taps row = taps(y, ty, th, hi_y);
+        float res[VEC];
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+            const int b = icg::clampi(val[r][k], 0, NBINS - 1);
+            const Taps& c = col[k];
+            const int rlo = row.lo * tx, rhi = row.hi * tx;
+            float acc = __fmul_rn(__fmul_rn(row.wlo, c.wlo), lut_at(lut, rlo + c.lo, b));
+            acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(row.wlo, c.whi), lut_at(lut, rlo + c.hi, b)));
+            acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(row.whi, c.wlo), lut_at(lut, rhi + c.lo, b)));
+            acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(row.whi, c.whi), lut_at(lut, rhi + c.hi, b)));
+            res[k] = acc;
+        }
+        float* dst = out + static_cast<size_t>(y) * W + x;
+        if constexpr (VEC == 2) {
+            *reinterpret_cast<float2*>(dst) = make_float2(res[0], res[1]);
+        } else {
+            dst[0] = res[0];
+        }
     }
 }
 
@@ -82,10 +125,23 @@ clahe_apply_kernel(const int32_t* __restrict__ v, const __nv_bfloat16* __restric
 // v: (H, W) i32 gray values in [0, 255]; lut: (ty*tx, 256) bf16 per-tile
 // transfer functions; out: (H, W) f32. Tiles are th x tw pixels on a
 // ty x tx grid; hi_y / hi_x are f32(ty - 1.000001) / f32(tx - 1.000001).
+// vec = 2 needs W even and v, out 8-byte aligned; vec = 1 takes any W.
 extern "C" int clahe_apply(const void* v, const void* lut, void* out, int H, int W, int ty,
-                           int tx, int th, int tw, float hi_y, float hi_x, void* stream) {
-    clahe_apply_kernel<<<ty * tx, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(v), static_cast<const __nv_bfloat16*>(lut),
-        static_cast<float*>(out), H, W, ty, tx, th, tw, hi_y, hi_x);
+                           int tx, int th, int tw, float hi_y, float hi_x, int vec, void* stream) {
+    const auto s = static_cast<cudaStream_t>(stream);
+    const auto* vp = static_cast<const int32_t*>(v);
+    const auto* lp = static_cast<const unsigned short*>(lut);
+    auto* op = static_cast<float*>(out);
+    const dim3 grid_rows(1, (H + ROWS - 1) / ROWS);
+    if (vec == 2) {
+        if (W % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
+        const dim3 grid((W / 2 + THREADS - 1) / THREADS, grid_rows.y);
+        clahe_apply_kernel<2><<<grid, THREADS, 0, s>>>(vp, lp, op, H, W, ty, tx, th, tw, hi_y,
+                                                       hi_x);
+    } else {
+        const dim3 grid((W + THREADS - 1) / THREADS, grid_rows.y);
+        clahe_apply_kernel<1><<<grid, THREADS, 0, s>>>(vp, lp, op, H, W, ty, tx, th, tw, hi_y,
+                                                       hi_x);
+    }
     return static_cast<int>(cudaGetLastError());
 }

@@ -13,7 +13,7 @@
 //   - the result is kept only if it moved < 5 px and the slot is valid.
 // The Pallas kernel's staging-block guard is a TPU artifact and is absent.
 //
-// What bounds it on the H100: latency, as for lk_level: each step depends
+// What bounds it on the H100: latency, as for LK (lk_pyr): each step depends
 // on the reductions of the previous one (20 serial rounds of 121 window
 // pixels x 4 bilinear samples). There are only ~210 corners per detection,
 // so the card is mostly idle; the design keeps each chain short instead.

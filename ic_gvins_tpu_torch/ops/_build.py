@@ -1,11 +1,12 @@
 """Build the hand-written CUDA kernels with ``nvcc`` and load them with ctypes.
 
-All ``csrc/*.cu`` files compile into one shared library for ``sm_90a``
-(Hopper) under ``build/`` at the repository root. The library's file name
-carries a hash of the sources and flags, so a changed source is rebuilt at
-its next use and an unchanged one is loaded as it is. Nothing is built when
-the package is imported: the first kernel launch builds. A missing ``nvcc``
-or a failed build raises; there is no fallback.
+Each ``csrc/*.cu`` file compiles for ``sm_90a`` (Hopper) in its own
+``nvcc`` process, all started together, and the objects link into one
+shared library under ``build/`` at the repository root. The library's file
+name carries a hash of the sources and flags, so a changed source is rebuilt
+at its next use and an unchanged one is loaded as it is. Nothing is built
+when the package is imported: the first kernel launch builds. A missing
+``nvcc`` or a failed build raises; there is no fallback.
 
 Every entry point has a plain C interface: device pointers and the CUDA
 stream as ``c_void_p``, sizes as ``c_int``, and a returned ``cudaError_t``
@@ -24,14 +25,14 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # entry point -> argument types (pointers, sizes, then the stream)
 SIGNATURES = {
-    "clahe_apply": [_P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _P],
-    "lk_level": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+    "clahe_apply": [_P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I, _P],
+    "lk_pyr": [_P] * 8 + [_I, _I, _I, _P, _P, _P, _I, ctypes.c_float, _I, _P, _P, _P, _I, _P],
     "subpix": [_P, _I, _I, _P, _P, _P, _I, _P],
 }
 
@@ -55,9 +56,41 @@ def _sources():
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
+def _compile(so):
+    """One nvcc per source, all running at once, then one link into ``so``."""
+    global build_seconds, build_log
+    nvcc = _nvcc()
+    work = BUILD_DIR / f"{so.stem}.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj, log = work / f"{src.stem}.o", work / f"{src.stem}.log"
+        with open(log, "w") as out:
+            jobs.append((obj, log, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=out, stderr=subprocess.STDOUT)))
+    codes = [proc.wait() for _, _, proc in jobs]
+    build_log = "".join(log.read_text() for _, log, _ in jobs)
+    if any(codes):
+        build_seconds = time.perf_counter() - t0
+        shutil.rmtree(work, ignore_errors=True)
+        raise RuntimeError(f"nvcc failed ({max(codes)}):\n{build_log}")
+    tmp = work / so.name
+    proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *[str(o) for o, _, _ in jobs]],
+                          capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    build_log += proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        shutil.rmtree(work, ignore_errors=True)
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, so)
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def library():
     """The loaded kernel library, built first if its sources changed."""
-    global _lib, build_seconds, build_log
+    global _lib
     if _lib is not None:
         return _lib
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -66,17 +99,7 @@ def library():
         h.update(src.read_bytes())
     so = BUILD_DIR / f"libicgvins_kernels_{h.hexdigest()[:16]}.so"
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in _sources() if s.suffix == ".cu"]]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-        os.replace(tmp, so)
+        _compile(so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -108,9 +108,11 @@ def _np(t, dtype=None):
 
 class Tracker:
     def __init__(self, camera: cam.PinholeCamera, vmap: VisualMap, cfg, F_MAX=None,
-                 device="cpu"):
+                 device="cuda"):
         """cfg: GvinsConfig (track_* + reprojection_error_std fields);
-        device: where the image stages run ("cpu" or "cuda")."""
+        device: where the image stages run, the card unless the caller asks
+        for "cpu". Nothing is allocated here; without CUDA the first device
+        op of ``track`` raises."""
         self.cam = camera
         self.map = vmap
         self.device = torch.device(device)

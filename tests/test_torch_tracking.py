@@ -24,6 +24,7 @@ from ic_gvins_tpu_torch.ops import lk as klk
 from ic_gvins_tpu_torch.ops import subpix as ksubpix
 from ic_gvins_tpu_torch.vision import camera as tcam
 from ic_gvins_tpu_torch.vision import map as tmap
+from ic_gvins_tpu_torch.vision import pyramid as tpyr
 from ic_gvins_tpu_torch.vision import ransac as transac
 from ic_gvins_tpu_torch.vision import tracking as ttrk
 
@@ -106,7 +107,8 @@ def test_port_imports_no_jax_or_yaml():
             "ic_gvins_tpu_torch.engine.config", "ic_gvins_tpu_torch.ops._build"] + [
         f"ic_gvins_tpu_torch.{p}.{m}" for p, ms in
         (("vision", ("map", "camera", "pyramid", "lk", "features", "ransac", "tracking")),
-         ("ops", ("clahe", "lk", "subpix"))) for m in ms]
+         ("ops", ("clahe", "lk", "subpix")), ("tools", ("ab_parent", "kernel_variants")))
+        for m in ms]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in ('jax', 'yaml') if m in sys.modules]\n"
@@ -118,14 +120,16 @@ def test_port_imports_no_jax_or_yaml():
 
 def _wrapper_cases(device):
     g = torch.Generator().manual_seed(0)
-    img = (torch.rand((48, 64), generator=g) * 255).to(device)
+    img_cpu = torch.rand((48, 64), generator=g) * 255
+    img = img_cpu.to(device)
     pts = (torch.rand((8, 2), generator=g) * 30 + 15).to(device)
     valid = torch.ones(8, dtype=torch.bool, device=device)
     v = img.to(torch.int32)
     lut = (torch.rand((4 * 4, 256), generator=g) * 255).to(torch.bfloat16).to(device)
+    pyr = [lv.to(device) for lv in tpyr.build_pyramid(img_cpu)]
     return [
         (kclahe.clahe_apply, kclahe.clahe_apply_plain, (v, lut, (4, 4), (12, 16))),
-        (klk.lk_level, klk.lk_level_plain, (img, img, pts, pts + 0.5, valid)),
+        (klk.lk_pyr, klk.lk_pyr_plain, (pyr, pyr, pts, pts + 0.5, valid)),
         (ksubpix.subpix, ksubpix.subpix_plain, (img, pts, valid)),
     ]
 
@@ -146,6 +150,25 @@ def test_wrappers_refuse_non_cuda_devices():
         with pytest.raises(ValueError):
             wrapper(*args)
         assert wrapper.launches == 0
+
+
+def test_entry_points_default_to_cuda():
+    """Tracker and pyramid_from_numpy run on the card unless the caller asks
+    for the CPU; without CUDA the first device op raises, nothing falls back."""
+    from ic_gvins_tpu_torch.convert import pyramid_from_numpy
+
+    cfg = tconfig.parse_config(CFG)
+    tracker = ttrk.Tracker(tcam.PinholeCamera(*small_camera()), tmap.VisualMap(8), cfg)
+    assert tracker.device.type == "cuda"
+    levels = [np.ones((4, 6), np.float32)]
+    if torch.cuda.is_available():
+        assert pyramid_from_numpy(levels)[0].device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            pyramid_from_numpy(levels)
+        with pytest.raises((RuntimeError, AssertionError)):
+            tracker.track(tmap.VFrame(stamp=0.0), np.zeros((240, 320)))
+    assert pyramid_from_numpy(levels, device="cpu")[0].device.type == "cpu"
 
 
 def test_failed_kernel_build_raises(tmp_path, monkeypatch):
