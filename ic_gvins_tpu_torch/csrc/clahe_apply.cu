@@ -14,22 +14,27 @@
 // the weights come from the pixel coordinate (the rule of
 // pyramid.py:_tile_offset_weights) and only the image crosses device memory.
 // To run near that floor the kernel must keep enough bytes in flight. What
-// bounds it now is the table reads: 7.9 us a 1278x1022 frame on an H100
-// 80GB HBM3 at 700 W, against 3.8 us for the same traversal writing the
-// gray value without the 4 lookups a pixel (PERF.md, tools/kernel_variants.py).
+// bounds it now is the throughput of the table reads, gathers through L1:
+// 7.5 us a 1278x1022 frame on an H100 80GB HBM3 at 700 W, against 3.8 us
+// for the same traversal writing the gray value without the 4 lookups a
+// pixel (PERF.md, tools/kernel_variants.py). Issuing the reads earlier gained
+// 0.4 us; overlapping them with the next rows' loads lost 1.4 us; staging
+// each block's tables in shared memory lost 2.7 us (the copy costs more
+// than the cheaper reads save).
 //
 // Design: row-major traversal. A thread owns VEC = 2 adjacent columns (one
 // 8-byte int2 load and one float2 store per row; W even keeps every row
-// 8-byte aligned, else VEC = 1) for ROWS rows, and issues all ROWS loads
-// before it uses any. Along each axis only two of the three offset weights
-// can be nonzero, so a coordinate's weights fold into two (tile, weight)
-// taps: the column taps are computed once per thread, the row taps once per
-// row, and no pixel divides. A pixel then reads 4 LUT entries (through the
-// read-only cache: the 225 KB of tables stay in L2 and the taps of a warp
-// hit the same few L1 lines) instead of staging 9 tables per tile in shared
-// memory. The blend keeps the plain version's order and its separate
-// rounding of every product and sum (the zero weights it skips add +0), so
-// the result equals ops/clahe.py:clahe_apply_plain.
+// 8-byte aligned, else VEC = 1) for ROWS rows. It issues all ROWS loads,
+// then all 4 * VEC * ROWS table reads, before it uses any. Along each axis
+// only two of the three offset weights can be nonzero, so a coordinate's
+// weights fold into two (tile, weight) taps: the column taps are computed
+// once per thread, the row taps once per row, and no pixel divides. A pixel
+// then reads 4 LUT entries (through the read-only cache: the 225 KB of
+// tables stay in L2 and the taps of a warp hit the same few L1 lines)
+// instead of staging 9 tables per tile in shared memory. The blend keeps
+// the plain version's order and its separate rounding of every product and
+// sum (the zero weights it skips add +0), so the result equals
+// ops/clahe.py:clahe_apply_plain.
 #include "common.cuh"
 
 namespace {
@@ -77,11 +82,11 @@ clahe_apply_kernel(const int32_t* __restrict__ v, const unsigned short* __restri
     const int y0 = blockIdx.y * ROWS;
     if (x >= W) return;
 
+    // rows past H are loaded (as row H - 1) and looked up, never stored
     int val[ROWS][VEC];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
-        const int y = min(y0 + r, H - 1);  // rows past H are loaded, never stored
-        const int32_t* src = v + static_cast<size_t>(y) * W + x;
+        const int32_t* src = v + static_cast<size_t>(min(y0 + r, H - 1)) * W + x;
         if constexpr (VEC == 2) {
             const int2 p = __ldg(reinterpret_cast<const int2*>(src));
             val[r][0] = p.x;
@@ -90,25 +95,38 @@ clahe_apply_kernel(const int32_t* __restrict__ v, const unsigned short* __restri
             val[r][0] = __ldg(src);
         }
     }
-    Taps col[VEC];
+    Taps col[VEC], row[ROWS];
 #pragma unroll
     for (int k = 0; k < VEC; ++k) col[k] = taps(x + k, tx, tw, hi_x);
+    // every table entry of the thread's pixels, all issued before any is used
+    float e[ROWS][VEC][4];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+        row[r] = taps(min(y0 + r, H - 1), ty, th, hi_y);
+        const int rlo = row[r].lo * tx, rhi = row[r].hi * tx;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+            const int b = icg::clampi(val[r][k], 0, NBINS - 1);
+            e[r][k][0] = lut_at(lut, rlo + col[k].lo, b);
+            e[r][k][1] = lut_at(lut, rlo + col[k].hi, b);
+            e[r][k][2] = lut_at(lut, rhi + col[k].lo, b);
+            e[r][k][3] = lut_at(lut, rhi + col[k].hi, b);
+        }
+    }
 
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
         const int y = y0 + r;
         if (y >= H) break;
-        const Taps row = taps(y, ty, th, hi_y);
+        const Taps& w = row[r];
         float res[VEC];
 #pragma unroll
         for (int k = 0; k < VEC; ++k) {
-            const int b = icg::clampi(val[r][k], 0, NBINS - 1);
-            const Taps& c = col[k];
-            const int rlo = row.lo * tx, rhi = row.hi * tx;
-            float acc = __fmul_rn(__fmul_rn(row.wlo, c.wlo), lut_at(lut, rlo + c.lo, b));
-            acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(row.wlo, c.whi), lut_at(lut, rlo + c.hi, b)));
-            acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(row.whi, c.wlo), lut_at(lut, rhi + c.lo, b)));
-            acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(row.whi, c.whi), lut_at(lut, rhi + c.hi, b)));
+            const Taps& u = col[k];
+            float acc = __fmul_rn(__fmul_rn(w.wlo, u.wlo), e[r][k][0]);
+            acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(w.wlo, u.whi), e[r][k][1]));
+            acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(w.whi, u.wlo), e[r][k][2]));
+            acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(w.whi, u.whi), e[r][k][3]));
             res[k] = acc;
         }
         float* dst = out + static_cast<size_t>(y) * W + x;

@@ -63,29 +63,28 @@ def _compile(so):
     work = BUILD_DIR / f"{so.stem}.{os.getpid()}"
     work.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    jobs = []
-    for src in (s for s in _sources() if s.suffix == ".cu"):
-        obj, log = work / f"{src.stem}.o", work / f"{src.stem}.log"
-        with open(log, "w") as out:
-            jobs.append((obj, log, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
-                stdout=out, stderr=subprocess.STDOUT)))
-    codes = [proc.wait() for _, _, proc in jobs]
-    build_log = "".join(log.read_text() for _, log, _ in jobs)
-    if any(codes):
+    try:
+        jobs = []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj, log = work / f"{src.stem}.o", work / f"{src.stem}.log"
+            with open(log, "w") as out:
+                jobs.append((obj, log, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                    stdout=out, stderr=subprocess.STDOUT)))
+        codes = [proc.wait() for _, _, proc in jobs]
+        build_log = "".join(log.read_text() for _, log, _ in jobs)
+        if any(codes):
+            raise RuntimeError(f"nvcc failed ({max(codes)}):\n{build_log}")
+        tmp = work / so.name
+        proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                               *[str(o) for o, _, _ in jobs]], capture_output=True, text=True)
+        build_log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{build_log}")
+        os.replace(tmp, so)
+    finally:
         build_seconds = time.perf_counter() - t0
         shutil.rmtree(work, ignore_errors=True)
-        raise RuntimeError(f"nvcc failed ({max(codes)}):\n{build_log}")
-    tmp = work / so.name
-    proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *[str(o) for o, _, _ in jobs]],
-                          capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log += proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        shutil.rmtree(work, ignore_errors=True)
-        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, so)
-    shutil.rmtree(work, ignore_errors=True)
 
 
 def library():

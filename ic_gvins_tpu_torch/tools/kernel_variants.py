@@ -40,7 +40,7 @@ VARIANTS = [
     ("clahe_rows4", [(CL, r"ROWS = 8;", "ROWS = 4;")]),
     ("clahe_rows16", [(CL, r"ROWS = 8;", "ROWS = 16;")]),
     ("clahe_threads256", [(CL, r"THREADS = 128;", "THREADS = 256;")]),
-    ("clahe_copy", [(CL, r"res\[k\] = acc;", "res[k] = static_cast<float>(b);")]),
+    ("clahe_copy", [(CL, r"res\[k\] = acc;", "res[k] = static_cast<float>(val[r][k]);")]),
     ("lk_threads64", [(LK, r"THREADS = 128;", "THREADS = 64;")]),
     ("lk_threads256", [(LK, r"THREADS = 128;", "THREADS = 256;")]),
     ("lk_margin3", [(LK, r"MARGIN = 5;", "MARGIN = 3;")]),
