@@ -54,7 +54,7 @@ DEVICE = "cuda"
 # Tracker statics at this size: F_MAX, block rows, block cols, per block,
 # min pixel distance (vision/tracking.py:135-147 of the JAX package)
 SLICE_STATICS = (256, 5, 6, 7, 62)
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM, on-chip-measurement guide
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 peak rate
 F32_FLOPS_PER_S = 67e12      # float32 outside the tensor cores
 CFG = dict(track_check_histogram=False, track_min_parallax=20, track_max_interval=0.5,
            track_max_features=200, reprojection_error_std=1.5, optimize_windows_size=10)
