@@ -15,9 +15,11 @@ of JAX. Phases, in order; any failure raises and the script exits nonzero:
    report the build time and ptxas usage;
 3. each kernel against its plain PyTorch version on the card, on a seeded
    synthetic 1278x1022 scene at the slice's shapes, timed with CUDA events,
-   with its bound (bytes over 3.35 TB/s or float32 operations over
-   67 TFLOP/s, the larger); the fused LK also on a near-border pair whose
-   flow carries windows past the image edge;
+   with its bound (the bytes these inputs need over 3.35 TB/s or the
+   float32 operations they need over 67 TFLOP/s, the larger: LK and subpix
+   count the pixels under their windows and the steps they took); the
+   fused LK also on a near-border pair whose flow carries windows past the
+   image edge, the CLAHE apply also at an odd width;
 4. the slice: >= 30 rendered 1278x1022 frames with known camera poses
    through ``Tracker.track`` (device="cuda", track_max_features=200), the
    keyframes inserted into the ``VisualMap`` as the engine does; the
@@ -28,14 +30,8 @@ of JAX. Phases, in order; any failure raises and the script exits nonzero:
    small 320x240 sequence: identical track states and keyframe flags.
 
 The second-to-last line is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
-
-``python3 chip_smoke.py --stages`` runs only phases 1 and 4's two passes
-(no kernel checks) and prints their numbers as one JSON line. It uses only
-``Tracker`` and the two stage functions, so it can time another checkout
-of the port: ``python3 -c "import sys, runpy; sys.path.insert(0, 'OTHER');
-sys.argv = ['chip_smoke.py', '--stages']; runpy.run_path('chip_smoke.py',
-run_name='__main__')"``.
+``{"ok": true, "device": {...}}``. The helpers take the port's modules as
+arguments, so ``tools/ab_compare.py`` can drive another checkout with them.
 """
 
 import json
@@ -202,25 +198,59 @@ def frame_stats(track_ms):
                 frame_ms_p90_2plus=float(np.percentile(ms[2:], 90)))
 
 
-def stages_only(torch):
-    """Phase 1 and phase 4's two passes, through Tracker alone."""
-    from ic_gvins_tpu_torch.engine.config import parse_config
-    from ic_gvins_tpu_torch.vision import camera as cam
-    from ic_gvins_tpu_torch.vision import map as vmap_mod
-    from ic_gvins_tpu_torch.vision import tracking as trk
+def lk_inputs(torch, pyramid, feat, img0, img1):
+    """The LK call of the main path on frame 0 -> 1: both CLAHE pyramids,
+    256 slots of corners (pts, valid)."""
+    pyr0 = pyramid.build_pyramid(pyramid.clahe(img0))
+    pyr1 = pyramid.build_pyramid(pyramid.clahe(img1))
+    c, _, v = feat.detect_blockwise(pyr0[0], torch.ones_like(pyr0[0]),
+                                    torch.zeros(30, dtype=torch.int32, device=img0.device),
+                                    block_rows=5, block_cols=6, per_block=9, min_distance=31)
+    return pyr0, pyr1, c[:256].contiguous(), v[:256].contiguous()
 
-    card = the_card(torch)
-    camera, _, poses, images = slice_world(cam)
-    cfg = parse_config(CFG)
-    vmap = vmap_mod.VisualMap(cfg.optimize_windows_size)
-    rows = run_tracker(trk, vmap_mod, trk.Tracker(camera, vmap, cfg, device=DEVICE), vmap,
-                       images, poses)
-    vmap = vmap_mod.VisualMap(cfg.optimize_windows_size)
-    stages, timed_ms = timed_stages(torch, trk, vmap_mod, trk.Tracker(camera, vmap, cfg, device=DEVICE),
-                                    vmap, images, poses)
-    print(json.dumps(dict(card=card, **frame_stats([r[4] for r in rows]), stages=stages,
-                          timed_frame_ms_median=float(np.median(timed_ms)))))
-    return 0
+
+def slice_pixels(torch, img, pts, half, pad):
+    """Flat indices into ``img`` of the raw (2*half+2)^2 slices that
+    ``extract_patch`` reads around ``pts`` of ``img`` edge-padded by ``pad``
+    px: the slice corner clipped inward, the padding an index clamp."""
+    H, W = img.shape
+    size = 2 * half + 2
+    r = torch.arange(size, device=img.device)
+    x0 = torch.clamp(torch.floor(pts[:, 0] + pad).long() - half, 0, W + 2 * pad - size)
+    y0 = torch.clamp(torch.floor(pts[:, 1] + pad).long() - half, 0, H + 2 * pad - size)
+    xs = torch.clamp(x0[:, None] + r - pad, 0, W - 1)
+    ys = torch.clamp(y0[:, None] + r - pad, 0, H - 1)
+    return (ys[:, :, None] * W + xs[:, None, :]).reshape(-1)
+
+
+def lk_pyr_bytes(torch, klk, args):
+    """Bytes the fused LK must move on these inputs, from its plain version's
+    level calls: each level pixel under a template slice (24x24 at a gated
+    slot's previous point) or under its first step's window slice (22x22 at
+    the level's first guess, slots whose template passed) read once, the
+    points and flags read once, the outputs written once. The windows of
+    later steps, a pixel or two further on, are not counted: a lower bound."""
+    calls, level = [], klk.lk_level_plain
+
+    def traced(img_prev, img_next, pts_prev, guess, valid):
+        nxt, ok = level(img_prev, img_next, pts_prev, guess, valid)
+        calls.append((img_prev, img_next, pts_prev, guess, valid, ok))
+        return nxt, ok
+
+    klk.lk_level_plain = traced
+    try:
+        klk.lk_pyr_plain(*args)
+    finally:
+        klk.lk_level_plain = level
+    read = {}
+    for img_prev, img_next, pts_prev, guess, gate, ok in calls:
+        for img, pts, mask, half in ((img_prev, pts_prev, gate, klk.WIN_HALF + 1),
+                                     (img_next, guess, ok, klk.WIN_HALF)):
+            read.setdefault(img.data_ptr(), []).append(
+                slice_pixels(torch, img, pts[mask], half, klk.PAD))
+    n_px = sum(int(torch.unique(torch.cat(idx)).numel()) for idx in read.values())
+    _, _, pts_prev, pts_pred, valid = args
+    return 4 * n_px + nbytes(pts_prev, pts_pred, valid) + valid.numel() * (2 * 4 + 1)
 
 
 def near_border_pair(torch, pyramid, base, sign, n=256):
@@ -256,8 +286,6 @@ def main():
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if sys.argv[1:] == ["--stages"]:
-        return stages_only(torch)
     from ic_gvins_tpu_torch.engine.config import parse_config
     from ic_gvins_tpu_torch.ops import _build
     from ic_gvins_tpu_torch.ops import clahe as kclahe
@@ -300,29 +328,29 @@ def main():
               f"(device-only {device_ms:.4f} ms)  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
               f"by {bound_by} ({n_bytes} B, {n_ops} float32 ops)  ({card})")
 
-    # K3 CLAHE apply, on the frame's own tables
+    # K3 CLAHE apply, on the frame's own tables; then at an odd width (frame 0
+    # cut to W - 1 columns, its own tables), which takes the one-column path
+    def check_clahe(tag, tables):
+        out_k = kclahe.clahe_apply(*tables)
+        d = (out_k - kclahe.clahe_apply_plain(*tables)).abs()
+        frac, worst = float((d <= 1e-3).float().mean()), float(d.max())
+        print(f"[kernel] clahe_apply {tag} {tuple(out_k.shape)}: {frac:.6f} of pixels within "
+              f"1e-3 gray, max {worst:.3g}")
+        assert frac >= 0.999 and worst <= 1e-2, f"K3 clahe_apply {tag}"
+        return worst, out_k
+
     tables = pyramid.clahe_tables(img0)
-    out_k = kclahe.clahe_apply(*tables)
-    out_p = kclahe.clahe_apply_plain(*tables)
-    torch.cuda.synchronize()
-    d = (out_k - out_p).abs()
-    frac = float((d <= 1e-3).float().mean())
-    assert frac >= 0.999 and float(d.max()) <= 1e-2, f"K3 clahe_apply: {frac} within 1e-3, max {float(d.max())}"
+    err, out_k = check_clahe("frame 0", tables)
+    err_odd, _ = check_clahe("odd width", pyramid.clahe_tables(img0[:, : W - 1].contiguous()))
     v_img, lut = tables[0], tables[1]
     # per pixel: 4 weight products, 4 weighted taps, 3 sums (the blend)
     record("clahe_apply", "ic_gvins_tpu_torch/csrc/clahe_apply.cu",
-           "ic_gvins_tpu/ops/pallas_clahe.py:64", d.max(),
+           "ic_gvins_tpu/ops/pallas_clahe.py:64", max(err, err_odd),
            lambda: kclahe.clahe_apply(*tables), lambda: kclahe.clahe_apply_plain(*tables),
            nbytes(v_img, lut, out_k), 11 * v_img.numel())
 
     # K1 fused LK: the main path's call (256 slots, 4 levels, both directions)
-    pyr0 = pyramid.build_pyramid(pyramid.clahe(img0))
-    pyr1 = pyramid.build_pyramid(pyramid.clahe(img1))
-    c, _, v = feat.detect_blockwise(pyr0[0], torch.ones_like(pyr0[0]),
-                                    torch.zeros(30, dtype=torch.int32, device=dev),
-                                    block_rows=5, block_cols=6, per_block=9, min_distance=31)
-    pts = c[:256].contiguous()
-    valid = v[:256].contiguous()
+    pyr0, pyr1, pts, valid = lk_inputs(torch, pyramid, feat, img0, img1)
     assert pts.shape == (256, 2) and int(valid.sum()) > 150, int(valid.sum())
     lk_args = (pyr0, pyr1, pts, pts, valid)
 
@@ -352,14 +380,15 @@ def main():
     _, st_f = klk.lk_pyr(*lk_args, directions=1)
     klk.lk_pyr(*lk_args, iters=iters)
     levels_run = 4 * (int(valid.sum()) + int(st_f.sum()))
+    lk_bytes = lk_pyr_bytes(torch, klk, lk_args)
     print(f"[kernel] lk_pyr frame 0->1: {int(iters.sum())} LK steps over {levels_run} slot-levels; "
-          f"longest slot chain {int(iters.max())} steps")
+          f"longest slot chain {int(iters.max())} steps; {lk_bytes} B under the windows "
+          f"(both pyramids: {nbytes(*pyr0, *pyr1)} B)")
     # a slot-level: 529 bilinear samples (7 ops) + 441 x (4 gradient + 6 G) ops;
     # a step: 441 x (7 sample + 1 diff + 4 b) ops
     record("lk_pyr", "ic_gvins_tpu_torch/csrc/lk_pyr.cu", "ic_gvins_tpu/ops/pallas_lk.py:309",
            max(errs), lambda: klk.lk_pyr(*lk_args), lambda: klk.lk_pyr_plain(*lk_args),
-           nbytes(*pyr0, *pyr1, pts, pts, valid) + 256 * 9,
-           levels_run * (529 * 7 + 441 * 10) + int(iters.sum()) * 441 * 12)
+           lk_bytes, levels_run * (529 * 7 + 441 * 10) + int(iters.sum()) * 441 * 12)
     print("[kernel] lk_pyr times are one frame's call: 4 levels, both directions")
 
     # K2 subpix: the slice's detection (5x6 blocks x 7 corners, min distance 62)
@@ -367,16 +396,23 @@ def main():
                                     torch.zeros(30, dtype=torch.int32, device=dev),
                                     block_rows=5, block_cols=6, per_block=7, min_distance=62)
     sp_args = (pyr0[0], c.contiguous(), v.contiguous())
-    out_k, out_p = ksubpix.subpix(*sp_args), ksubpix.subpix_plain(*sp_args)
+    sp_iters = torch.zeros(c.shape[0], dtype=torch.int32, device=dev)
+    out_k, out_p = ksubpix.subpix(*sp_args, iters=sp_iters), ksubpix.subpix_plain(*sp_args)
     e = torch.linalg.vector_norm(out_k - out_p, dim=1)[v]
     assert c.shape == (210, 2) and int(v.sum()) > 150
     med, within = float(e.median()), float((e <= 0.05).float().mean())
-    print(f"[kernel] subpix {tuple(c.shape)}: median diff {med:.2e} px, within 0.05 px {within:.4f}")
+    # bytes: the 14x14 slices at the corners (the first step's; later steps
+    # move < 1 px a step and are not counted), the corners and flags, the output
+    sp_px = torch.unique(slice_pixels(torch, pyr0[0], c[v], ksubpix.HALF + 1, 0)).numel()
+    sp_bytes = 4 * int(sp_px) + nbytes(*sp_args[1:], out_k)
+    print(f"[kernel] subpix {tuple(c.shape)}: median diff {med:.2e} px, within 0.05 px "
+          f"{within:.4f}; {int(sp_iters.sum())} steps, longest {int(sp_iters.max())}; "
+          f"{sp_bytes} B under the windows")
     assert med < 1e-3 and within >= 0.99, "K2 subpix"
-    # operations at the 20-step maximum: 169 samples x 7 + 121 x ~20 per step
+    # a step: 169 patch samples x 7 + 121 window pixels x ~20 ops
     record("subpix", "ic_gvins_tpu_torch/csrc/subpix.cu", "ic_gvins_tpu/ops/pallas_subpix.py:204",
            e.max(), lambda: ksubpix.subpix(*sp_args), lambda: ksubpix.subpix_plain(*sp_args),
-           nbytes(*sp_args, out_k), int(v.sum()) * 20 * (169 * 7 + 121 * 20))
+           sp_bytes, int(sp_iters.sum()) * (169 * 7 + 121 * 20))
 
     # argmax tie-breaks: detection on the card equals the CPU on the same frame
     kw = dict(block_rows=5, block_cols=6, per_block=7, min_distance=62)

@@ -28,16 +28,17 @@
 // There is no block-edge cull: the Pallas kernel's 64x256 staging block is
 // a TPU artifact.
 //
-// What bounds it on the H100: the dependent chain, not bytes. Reading both
-// pyramids once is ~14 MB (~4 us at 3.35 TB/s) and the float work is a few
-// tens of MFLOP, but each slot is a serial chain of up to 2 x 4 x 30 steps,
-// every step a reduction over the previous step's window. The time is the
-// longest slot's chain: per level one round trip to L2 for the template and
-// the window neighbourhood, then per step the latency of shared-memory
-// reads, a warp-shuffle tree and one block barrier. Measured on an H100
-// 80GB HBM3 at 700 W (PERF.md): 60 us for a 256-slot frame, of which ~20 us
-// is the launch and the levels' staging and ~40 us the longest slot's 120
-// steps (~0.33 us a step).
+// What bounds it on the H100: the dependent chain, not bytes. The pixels
+// under the templates and windows of a 256-slot frame are ~2.8 MB (~0.8 us
+// at 3.35 TB/s; the whole pyramids, 13.9 MB, are never read) and the float
+// work ~50 MFLOP (~0.75 us), but each slot is a serial chain of up to
+// 2 x 4 x 30 steps, every step a reduction over the previous step's
+// window. The time is the longest slot's chain: per level one round trip to
+// L2 for the template and the window neighbourhood, then per step the
+// latency of shared-memory reads, a warp-shuffle tree and one block
+// barrier. Measured on an H100 80GB HBM3 at 700 W (PERF.md): 60 us for a
+// 256-slot frame, of which ~20 us is the launch and the levels' staging and
+// ~40 us the longest slot's 120 steps (~0.33 us a step).
 //
 // Design: one block of 128 threads (4 warps) per slot; each thread owns 4
 // of the 441 window pixels, whose template and gradients stay in registers

@@ -16,7 +16,9 @@
 // What bounds it on the H100: latency, as for LK (lk_pyr): each step depends
 // on the reductions of the previous one (20 serial rounds of 121 window
 // pixels x 4 bilinear samples). There are only ~210 corners per detection,
-// so the card is mostly idle; the design keeps each chain short instead.
+// so the card is mostly idle: their 14x14 slices are ~0.16 MB and the steps
+// of a frame ~13.5 MFLOP, ~0.2 us of work against ~22 us (PERF.md). The
+// design keeps each chain short instead.
 // Design: one warp per corner, the 121 window pixels strided over its 32
 // lanes (4 each), samples through the read-only cache, five warp-shuffle
 // reductions per step that leave the same step in every lane.
@@ -39,12 +41,14 @@ __device__ __forceinline__ float axis_weight(int d) {
 
 __global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
 subpix_kernel(const float* __restrict__ img, int H, int W, const float* __restrict__ pts,
-              const uint8_t* __restrict__ valid, float* __restrict__ out, int N) {
+              const uint8_t* __restrict__ valid, float* __restrict__ out,
+              int* __restrict__ iters_out, int N) {
     const int c = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
     if (c >= N) return;  // uniform per warp
     const float cx = pts[2 * c], cy = pts[2 * c + 1];
     float x = cx, y = cy;
+    int iters = 0;
     if (valid[c]) {
         for (int it = 0; it < ITERS; ++it) {
             // extract_patch(img, (x, y), HALF + 1): 13x13 patch, 14x14 slice
@@ -90,6 +94,7 @@ subpix_kernel(const float* __restrict__ img, int H, int W, const float* __restri
             const float dy = fminf(fmaxf(sy, -1.0f), 1.0f);
             x += dx;
             y += dy;
+            ++iters;
             if (sqrtf(dx * dx + dy * dy) < EPS) break;
         }
         // keep the refinement only if it stayed close (guards divergence)
@@ -101,18 +106,21 @@ subpix_kernel(const float* __restrict__ img, int H, int W, const float* __restri
     if (lane == 0) {
         out[2 * c] = x;
         out[2 * c + 1] = y;
+        if (iters_out != nullptr) iters_out[c] = iters;
     }
 }
 
 }  // namespace
 
-// img: (H, W) f32; pts: (N, 2) f32 xy; valid: (N,) u8; out: (N, 2) f32.
+// img: (H, W) f32; pts: (N, 2) f32 xy; valid: (N,) u8; out: (N, 2) f32;
+// when iters_out is not null, each corner's number of steps (N,) i32.
 extern "C" int subpix(const void* img, int H, int W, const void* pts, const void* valid, void* out,
-                      int N, void* stream) {
+                      void* iters_out, int N, void* stream) {
     if (N == 0) return 0;
     const int blocks = (N + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
     subpix_kernel<<<blocks, 32 * WARPS_PER_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(img), H, W, static_cast<const float*>(pts),
-        static_cast<const uint8_t*>(valid), static_cast<float*>(out), N);
+        static_cast<const uint8_t*>(valid), static_cast<float*>(out),
+        static_cast<int*>(iters_out), N);
     return static_cast<int>(cudaGetLastError());
 }

@@ -33,7 +33,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "clahe_apply": [_P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I, _P],
     "lk_pyr": [_P] * 8 + [_I, _I, _I, _P, _P, _P, _I, ctypes.c_float, _I, _P, _P, _P, _I, _P],
-    "subpix": [_P, _I, _I, _P, _P, _P, _I, _P],
+    "subpix": [_P, _I, _I, _P, _P, _P, _P, _I, _P],
 }
 
 _lib = None
@@ -52,20 +52,21 @@ def _nvcc():
     return found
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def _sources(src_dir):
+    return sorted(src_dir.glob("*.cu")) + sorted(src_dir.glob("*.cuh"))
 
 
-def _compile(so):
-    """One nvcc per source, all running at once, then one link into ``so``."""
+def _compile(src_dir, so):
+    """One nvcc per source of ``src_dir``, all running at once, then one link
+    into ``so``."""
     global build_seconds, build_log
     nvcc = _nvcc()
-    work = BUILD_DIR / f"{so.stem}.{os.getpid()}"
+    work = so.parent / f"{so.stem}.{os.getpid()}"
     work.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     try:
         jobs = []
-        for src in (s for s in _sources() if s.suffix == ".cu"):
+        for src in (s for s in _sources(src_dir) if s.suffix == ".cu"):
             obj, log = work / f"{src.stem}.o", work / f"{src.stem}.log"
             with open(log, "w") as out:
                 jobs.append((obj, log, subprocess.Popen(
@@ -87,18 +88,17 @@ def _compile(so):
         shutil.rmtree(work, ignore_errors=True)
 
 
-def library():
-    """The loaded kernel library, built first if its sources changed."""
-    global _lib
-    if _lib is not None:
-        return _lib
+def load(src_dir=CSRC, out_dir=None):
+    """Build the kernels of ``src_dir`` into ``out_dir`` (default ``build/``)
+    unless a library of the same sources and flags is there, and bind it."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources(src_dir):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    so = BUILD_DIR / f"libicgvins_kernels_{h.hexdigest()[:16]}.so"
+    out_dir = BUILD_DIR if out_dir is None else out_dir
+    so = out_dir / f"libicgvins_kernels_{h.hexdigest()[:16]}.so"
     if not so.exists():
-        _compile(so)
+        _compile(src_dir, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
@@ -106,8 +106,15 @@ def library():
         fn.restype = ctypes.c_int
     lib.icg_error_string.argtypes = [ctypes.c_int]
     lib.icg_error_string.restype = ctypes.c_char_p
-    _lib = lib
     return lib
+
+
+def library():
+    """The port's kernel library (``csrc/``), loaded once per process."""
+    global _lib
+    if _lib is None:
+        _lib = load()
+    return _lib
 
 
 def launch(name, *args):

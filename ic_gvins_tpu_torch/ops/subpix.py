@@ -58,10 +58,14 @@ def subpix_plain(img, corners, valid):
     return torch.where(valid[:, None], out, corners)
 
 
-def subpix(img, corners, valid):
+def subpix(img, corners, valid, iters=None):
     """Kernel K2 wrapper. CPU tensors take ``subpix_plain``; CUDA tensors
-    launch ``csrc/subpix.cu`` (or raise)."""
+    launch ``csrc/subpix.cu`` (or raise). ``iters``, an (N,) int32 CUDA
+    tensor, receives each corner's number of steps; the plain version does
+    not count."""
     if img.device.type == "cpu":
+        if iters is not None:
+            raise ValueError("subpix: iters is counted by the CUDA kernel only")
         return subpix_plain(img, corners, valid)
     H, W = img.shape
     N = corners.shape[0]
@@ -71,10 +75,16 @@ def subpix(img, corners, valid):
         raise TypeError("subpix: img and corners must be float32, valid bool")
     if H < 2 * HALF + 4 or W < 2 * HALF + 4:
         raise ValueError("subpix: image smaller than the 14x14 sampling slice")
-    _build.require_cuda("subpix", img, corners, valid)
+    tensors = (img, corners, valid)
+    if iters is not None:
+        if iters.shape != (N,) or iters.dtype != torch.int32:
+            raise ValueError("subpix: iters must be an (N,) int32 tensor")
+        tensors = (*tensors, iters)
+    _build.require_cuda("subpix", *tensors)
     out = torch.empty((N, 2), dtype=torch.float32, device=img.device)
     _build.launch("subpix", img.data_ptr(), H, W, corners.data_ptr(), valid.data_ptr(),
-                  out.data_ptr(), N, _build.stream_ptr(img))
+                  out.data_ptr(), None if iters is None else iters.data_ptr(), N,
+                  _build.stream_ptr(img))
     subpix.launches += 1
     return out
 

@@ -107,8 +107,7 @@ def test_port_imports_no_jax_or_yaml():
             "ic_gvins_tpu_torch.engine.config", "ic_gvins_tpu_torch.ops._build"] + [
         f"ic_gvins_tpu_torch.{p}.{m}" for p, ms in
         (("vision", ("map", "camera", "pyramid", "lk", "features", "ransac", "tracking")),
-         ("ops", ("clahe", "lk", "subpix")), ("tools", ("ab_parent", "kernel_variants")))
-        for m in ms]
+         ("ops", ("clahe", "lk", "subpix"))) for m in ms]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in ('jax', 'yaml') if m in sys.modules]\n"
@@ -150,6 +149,16 @@ def test_wrappers_refuse_non_cuda_devices():
         with pytest.raises(ValueError):
             wrapper(*args)
         assert wrapper.launches == 0
+
+
+def test_step_counts_come_from_the_kernels_only():
+    """``iters`` (steps a slot took) is written by the CUDA kernels; the
+    plain versions do not count, so a CPU call that asks for it raises."""
+    for wrapper, _, args in _wrapper_cases("cpu"):
+        if wrapper in (klk.lk_pyr, ksubpix.subpix):
+            with pytest.raises(ValueError, match="iters"):
+                wrapper(*args, iters=torch.zeros(8, dtype=torch.int32))
+            assert wrapper.launches == 0
 
 
 def test_entry_points_default_to_cuda():
