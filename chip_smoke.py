@@ -19,7 +19,10 @@ of JAX. Phases, in order; any failure raises and the script exits nonzero:
    float32 operations they need over 67 TFLOP/s, the larger: LK and subpix
    count the pixels under their windows and the steps they took); the
    fused LK also on a near-border pair whose flow carries windows past the
-   image edge, the CLAHE apply also at an odd width;
+   image edge, the CLAHE apply also at an odd width, subpix also on a set of
+   corners near the four edges and on blob flanks (``subpix_edge_set``) that
+   must reach its clip-shifted slice and its divergence guard, its step
+   counts held against the plain version's;
 4. the slice: >= 30 rendered 1278x1022 frames with known camera poses
    through ``Tracker.track`` (device="cuda", track_max_features=200), the
    keyframes inserted into the ``VisualMap`` as the engine does; the
@@ -209,6 +212,15 @@ def lk_inputs(torch, pyramid, feat, img0, img1):
     return pyr0, pyr1, c[:256].contiguous(), v[:256].contiguous()
 
 
+def subpix_inputs(torch, feat, img):
+    """The subpix call of the main path on ``img``: the slice's detection
+    (5x6 blocks x 7 corners, min distance 62), 210 corner slots."""
+    c, _, v = feat.detect_blockwise(img, torch.ones_like(img),
+                                    torch.zeros(30, dtype=torch.int32, device=img.device),
+                                    block_rows=5, block_cols=6, per_block=7, min_distance=62)
+    return img, c.contiguous(), v.contiguous()
+
+
 def slice_pixels(torch, img, pts, half, pad):
     """Flat indices into ``img`` of the raw (2*half+2)^2 slices that
     ``extract_patch`` reads around ``pts`` of ``img`` edge-padded by ``pad``
@@ -274,6 +286,93 @@ def near_border_pair(torch, pyramid, base, sign, n=256):
     f32 = dict(dtype=torch.float32, device=dev)
     return (pyramid.build_pyramid(base), pyramid.build_pyramid(shifted), torch.tensor(pts, **f32),
             torch.tensor(pred, **f32), torch.ones(n, dtype=torch.bool, device=dev))
+
+
+SUBPIX_CASES = ("border", "guard", "interior", "invalid")
+
+
+def subpix_edge_set(height, width, seed, spacing=40):
+    """A seeded image and corner table that drive K2 through its border and
+    divergence paths. Gaussian blobs (sigma 2.5 px, +-80 gray) over the
+    band-limited texture of ``render``:
+
+    - ``border``: a blob centred 0-8 px inside each edge every ``spacing``
+      px along it; its corner lies 0-8 px from that edge (clip-shifted
+      slices), within 1.5 px of the blob's centre or 6-9 px from it along
+      the edge;
+    - ``guard`` / ``interior``: blobs on a jittered grid ``spacing`` +- 4
+      px apart and from the edges, alternately with a corner 6-9 px from the
+      centre (the refinement climbs toward the centre in steps clipped to
+      +-1 px and ends >= 5 px away: the divergence guard) or within 1.5 px
+      of it (kept);
+    - ``invalid``: every 16th slot of the above, flagged invalid.
+
+    Returns (img (H, W) f32, corners (N, 2) f32 xy, valid (N,) bool,
+    kind (N,) str), all numpy."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float64)
+    img = 90.0 + 15.0 * np.sin(xx / (29.0 * width / 320)) * np.sin(yy / (31.0 * height / 240))
+    centres, corners, kinds = [], [], []
+
+    def near_or_flank(n, far, axis):
+        """Offsets from a blob centre: within 1.5 px, or (where ``far``)
+        6-9 px along ``axis`` (0: x, 1: y; None: any direction)."""
+        off = rng.uniform(-1.5, 1.5, (n, 2))
+        r = rng.uniform(6.0, 9.0, n) * rng.choice([-1.0, 1.0], n)
+        if axis is None:
+            a = rng.uniform(0.0, 2 * np.pi, n)
+            flank = np.stack([r * np.cos(a), r * np.sin(a)], axis=1)
+        else:
+            flank = np.zeros((n, 2))
+            flank[:, axis] = r
+        return np.where(far[:, None], flank, off)
+
+    for edge in range(4):  # left, right, top, bottom
+        along_len = height if edge < 2 else width
+        along = np.arange(spacing / 2, along_len - spacing / 2, spacing)
+        n = len(along)
+        depth = rng.uniform(0.0, 8.0, n)                # blob centre from the edge
+        inward = depth if edge % 2 == 0 else (width if edge < 2 else height) - 1.0 - depth
+        c = np.stack([inward, along], 1) if edge < 2 else np.stack([along, inward], 1)
+        p = c + near_or_flank(n, np.arange(n) % 2 == 1, 1 if edge < 2 else 0)
+        perp = 0 if edge < 2 else 1                     # the corner too lies 0-8 px inside
+        lim = width if edge < 2 else height
+        lo, hi = (0.0, 8.0) if edge % 2 == 0 else (lim - 9.0, lim - 1.0)
+        p[:, perp] = np.clip(p[:, perp], lo, hi)
+        centres.append(c)
+        corners.append(p)
+        kinds += ["border"] * n
+    gx = np.arange(spacing, width - spacing + 1, spacing, dtype=np.float64)
+    gy = np.arange(spacing, height - spacing + 1, spacing, dtype=np.float64)
+    c = np.stack(np.meshgrid(gx, gy), -1).reshape(-1, 2) + rng.uniform(-4.0, 4.0, (len(gx) * len(gy), 2))
+    far = np.arange(len(c)) % 2 == 0
+    centres.append(c)
+    corners.append(c + near_or_flank(len(c), far, None))
+    kinds += ["guard" if f else "interior" for f in far]
+    centres = np.concatenate(centres)
+    amps = 80.0 * np.where(np.arange(len(centres)) % 2 == 0, 1.0, -1.0)
+    rad = np.arange(-10, 11)
+    for (x, y), a in zip(centres, amps):
+        ys = np.unique(np.clip(int(round(y)) + rad, 0, height - 1))
+        xs = np.unique(np.clip(int(round(x)) + rad, 0, width - 1))
+        blob = np.exp(-((xs[None, :] - x) ** 2 + (ys[:, None] - y) ** 2) / (2 * 2.5**2))
+        img[np.ix_(ys, xs)] += a * blob
+    kind = np.array(kinds)
+    valid = np.arange(len(kind)) % 16 != 5
+    kind[~valid] = "invalid"
+    return (np.clip(img, 0, 255).astype(np.float32), np.concatenate(corners).astype(np.float32),
+            valid, kind)
+
+
+def subpix_paths(torch, corners, valid, out, steps, W, H, half=5):
+    """How many valid corners of a plain run took the clip-shifted slice at
+    their first step, and how many the divergence guard sent back: they
+    took more than one step (so the first one moved them) and their output
+    is their input."""
+    ix, iy = torch.floor(corners[:, 0]).long() - (half + 1), torch.floor(corners[:, 1]).long() - (half + 1)
+    clipped = valid & ((ix < 0) | (ix > W - (2 * half + 4)) | (iy < 0) | (iy > H - (2 * half + 4)))
+    rejected = valid & (steps > 1) & (out == corners).all(dim=1)
+    return clipped, rejected
 
 
 def main():
@@ -391,37 +490,54 @@ def main():
            lk_bytes, levels_run * (529 * 7 + 441 * 10) + int(iters.sum()) * 441 * 12)
     print("[kernel] lk_pyr times are one frame's call: 4 levels, both directions")
 
-    # K2 subpix: the slice's detection (5x6 blocks x 7 corners, min distance 62)
-    c, _, v = feat.detect_blockwise(pyr0[0], torch.ones_like(pyr0[0]),
-                                    torch.zeros(30, dtype=torch.int32, device=dev),
-                                    block_rows=5, block_cols=6, per_block=7, min_distance=62)
-    sp_args = (pyr0[0], c.contiguous(), v.contiguous())
-    sp_iters = torch.zeros(c.shape[0], dtype=torch.int32, device=dev)
-    out_k, out_p = ksubpix.subpix(*sp_args, iters=sp_iters), ksubpix.subpix_plain(*sp_args)
-    e = torch.linalg.vector_norm(out_k - out_p, dim=1)[v]
+    # K2 subpix: the slice's detection, then the border/guard set; steps
+    # compared with the plain version's count
+    def check_subpix(tag, args):
+        n, valid_s = args[1].shape[0], args[2]
+        iters_k, steps_p = (torch.zeros(n, dtype=torch.int32, device=dev) for _ in range(2))
+        out_k = ksubpix.subpix(*args, iters=iters_k)
+        out_p = ksubpix.subpix_plain(*args, steps=steps_p)
+        e = torch.linalg.vector_norm(out_k - out_p, dim=1)[valid_s]
+        med, within = float(e.median()), float((e <= 0.05).float().mean())
+        same = float((iters_k == steps_p)[valid_s].float().mean())
+        print(f"[kernel] subpix {tag} {tuple(args[1].shape)}: median diff {med:.2e} px, within "
+              f"0.05 px {within:.4f}, max {float(e.max()):.2e}; steps equal to the plain count "
+              f"{same:.4f} ({int(steps_p.sum())} plain steps, longest {int(steps_p.max())})")
+        assert med < 1e-3 and within >= 0.99 and same >= 0.99, f"K2 subpix {tag}"
+        assert torch.equal(out_k[~valid_s], args[1][~valid_s]), f"K2 {tag}: invalid slots moved"
+        return float(e.max()), out_p, steps_p
+
+    sp_args = subpix_inputs(torch, feat, pyr0[0])
+    _, c, v = sp_args
     assert c.shape == (210, 2) and int(v.sum()) > 150
-    med, within = float(e.median()), float((e <= 0.05).float().mean())
+    sp_err, out_p, sp_steps = check_subpix("slice detection", sp_args)
+    e_img, e_c, e_v, e_kind = subpix_edge_set(H, W, SEED + 3)
+    e_args = (torch.tensor(e_img, device=dev), torch.tensor(e_c, device=dev),
+              torch.tensor(e_v, device=dev))
+    e_err, e_out, e_steps = check_subpix("border/guard set", e_args)
+    clipped, rejected = subpix_paths(torch, e_args[1], e_args[2], e_out, e_steps, W, H)
+    for kind in SUBPIX_CASES:
+        m = torch.tensor(e_kind == kind, device=dev)
+        print(f"[kernel] subpix border/guard set, {kind}: {int(m.sum())} slots, "
+              f"{int(clipped[m].sum())} clip-shifted slices, {int(rejected[m].sum())} sent back "
+              f"by the divergence guard")
+    assert int(clipped.sum()) >= 20 and int(rejected.sum()) >= 20, \
+        "the border/guard set never reached the clip-shifted slice or the divergence guard"
     # bytes: the 14x14 slices at the corners (the first step's; later steps
-    # move < 1 px a step and are not counted), the corners and flags, the output
+    # move < 1 px a step and are not counted), the corners and flags, the
+    # output; operations: the plain version's steps, whatever implements them
     sp_px = torch.unique(slice_pixels(torch, pyr0[0], c[v], ksubpix.HALF + 1, 0)).numel()
-    sp_bytes = 4 * int(sp_px) + nbytes(*sp_args[1:], out_k)
-    print(f"[kernel] subpix {tuple(c.shape)}: median diff {med:.2e} px, within 0.05 px "
-          f"{within:.4f}; {int(sp_iters.sum())} steps, longest {int(sp_iters.max())}; "
-          f"{sp_bytes} B under the windows")
-    assert med < 1e-3 and within >= 0.99, "K2 subpix"
+    sp_bytes = 4 * int(sp_px) + nbytes(*sp_args[1:], out_p)
+    print(f"[kernel] subpix slice detection: {sp_bytes} B under the windows")
     # a step: 169 patch samples x 7 + 121 window pixels x ~20 ops
     record("subpix", "ic_gvins_tpu_torch/csrc/subpix.cu", "ic_gvins_tpu/ops/pallas_subpix.py:204",
-           e.max(), lambda: ksubpix.subpix(*sp_args), lambda: ksubpix.subpix_plain(*sp_args),
-           sp_bytes, int(sp_iters.sum()) * (169 * 7 + 121 * 20))
+           max(sp_err, e_err), lambda: ksubpix.subpix(*sp_args),
+           lambda: ksubpix.subpix_plain(*sp_args), sp_bytes,
+           int(sp_steps.sum()) * (169 * 7 + 121 * 20))
 
     # argmax tie-breaks: detection on the card equals the CPU on the same frame
-    kw = dict(block_rows=5, block_cols=6, per_block=7, min_distance=62)
-    cg, _, vg = feat.detect_blockwise(pyr0[0], torch.ones_like(pyr0[0]),
-                                      torch.zeros(30, dtype=torch.int32, device=dev), **kw)
-    img_cpu = pyr0[0].cpu()
-    cc, _, vc = feat.detect_blockwise(img_cpu, torch.ones_like(img_cpu),
-                                      torch.zeros(30, dtype=torch.int32), **kw)
-    assert torch.equal(cg.cpu(), cc) and torch.equal(vg.cpu(), vc), "detect_blockwise CUDA != CPU"
+    _, cc, vc = subpix_inputs(torch, feat, pyr0[0].cpu())
+    assert torch.equal(c.cpu(), cc) and torch.equal(v.cpu(), vc), "detect_blockwise CUDA != CPU"
     print("[detect] corner tables on the card equal the CPU's on the same frame")
 
     # ---- phase 4: the slice at full width ----------------------------------

@@ -17,9 +17,11 @@ ITERS = 20        # cv::TermCriteria(COUNT + EPS, 20, 0.01) — tracking.cc:625
 EPS = 0.01
 
 
-def subpix_plain(img, corners, valid):
+def subpix_plain(img, corners, valid, steps=None):
     """img: (H, W) f32; corners: (N, 2) f32 xy; valid: (N,) bool.
-    Returns refined (N, 2) f32."""
+    Returns refined (N, 2) f32. ``steps``, an (N,) int32 tensor, receives
+    each corner's number of steps applied before it stopped (0 for invalid
+    slots), as the kernel's ``iters``."""
     from ..vision.pyramid import extract_patch
 
     d = torch.arange(2 * HALF + 1, dtype=torch.float32, device=img.device) - HALF
@@ -29,6 +31,7 @@ def subpix_plain(img, corners, valid):
 
     pos = corners
     active = torch.ones(corners.shape[0], dtype=torch.bool, device=img.device)
+    taken = torch.zeros(corners.shape[0], dtype=torch.int32, device=img.device)
     for _ in range(ITERS):
         patch = extract_patch(img, pos, HALF + 1)  # (N, 13, 13)
         gx = 0.5 * (patch[:, 1:-1, 2:] - patch[:, 1:-1, :-2])
@@ -51,7 +54,10 @@ def subpix_plain(img, corners, valid):
         # cv TermCriteria(COUNT + EPS, 20, 0.01): apply the step, stop once
         # it fell below eps (tracking.cc:625)
         pos = torch.where(active[:, None], pos + step, pos)
+        taken += active.to(torch.int32)
         active = active & (torch.linalg.vector_norm(step, dim=1) >= EPS)
+    if steps is not None:
+        steps.copy_(torch.where(valid, taken, torch.zeros_like(taken)))
     # keep refinement only if it stayed close (guards divergence)
     moved = torch.linalg.vector_norm(pos - corners, dim=1)
     out = torch.where((moved < HALF)[:, None], pos, corners)
@@ -60,26 +66,21 @@ def subpix_plain(img, corners, valid):
 
 def subpix(img, corners, valid, iters=None):
     """Kernel K2 wrapper. CPU tensors take ``subpix_plain``; CUDA tensors
-    launch ``csrc/subpix.cu`` (or raise). ``iters``, an (N,) int32 CUDA
-    tensor, receives each corner's number of steps; the plain version does
-    not count."""
-    if img.device.type == "cpu":
-        if iters is not None:
-            raise ValueError("subpix: iters is counted by the CUDA kernel only")
-        return subpix_plain(img, corners, valid)
+    launch ``csrc/subpix.cu`` (or raise). ``iters``, an (N,) int32 tensor on
+    the inputs' device, receives each corner's number of steps."""
     H, W = img.shape
     N = corners.shape[0]
+    if iters is not None and (iters.shape != (N,) or iters.dtype != torch.int32):
+        raise ValueError("subpix: iters must be an (N,) int32 tensor")
+    if img.device.type == "cpu":
+        return subpix_plain(img, corners, valid, steps=iters)
     if corners.shape != (N, 2) or valid.shape != (N,):
         raise ValueError("subpix: shape mismatch")
     if (img.dtype, corners.dtype, valid.dtype) != (torch.float32, torch.float32, torch.bool):
         raise TypeError("subpix: img and corners must be float32, valid bool")
     if H < 2 * HALF + 4 or W < 2 * HALF + 4:
         raise ValueError("subpix: image smaller than the 14x14 sampling slice")
-    tensors = (img, corners, valid)
-    if iters is not None:
-        if iters.shape != (N,) or iters.dtype != torch.int32:
-            raise ValueError("subpix: iters must be an (N,) int32 tensor")
-        tensors = (*tensors, iters)
+    tensors = (img, corners, valid) if iters is None else (img, corners, valid, iters)
     _build.require_cuda("subpix", *tensors)
     out = torch.empty((N, 2), dtype=torch.float32, device=img.device)
     _build.launch("subpix", img.data_ptr(), H, W, corners.data_ptr(), valid.data_ptr(),

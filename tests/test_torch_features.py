@@ -1,13 +1,16 @@
 """Port parity: Shi-Tomasi detection, occupancy mask and subpixel refinement
-(ic_gvins_tpu_torch.vision.features; kernel K2's plain route)."""
+(ic_gvins_tpu_torch.vision.features; kernel K2's plain route, also on
+chip_smoke.py's near-border / divergence-guard set, and its step count)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from test_vision_kernels import synth_image
 from ic_gvins_tpu.vision import features as jfeat
+from ic_gvins_tpu_torch.ops import subpix as ksubpix
 from ic_gvins_tpu_torch.vision import features as tfeat
 
 torch.set_num_threads(1)
@@ -78,3 +81,72 @@ def test_corner_subpix_matches_jnp_path():
     assert np.median(d[v]) < 1e-4, f"median {np.median(d[v])}"
     assert d.max() < 1e-2, f"max {d.max()}"
     np.testing.assert_array_equal(out[~v], pts[~v])
+
+
+@pytest.fixture(scope="module")
+def edge_set():
+    """chip_smoke.py's K2 border/guard set at 320x240, through the jnp path
+    and the plain version (with its step count)."""
+    img, c, v, kind = chip_smoke.subpix_edge_set(H, W, seed=0)
+    ref = np.asarray(jfeat.corner_subpix(jnp.asarray(img), jnp.asarray(c), jnp.asarray(v)))
+    steps = torch.zeros(len(c), dtype=torch.int32)
+    tc, tv = torch.tensor(c), torch.tensor(v)
+    out = ksubpix.subpix_plain(torch.tensor(img), tc, tv, steps=steps)
+    clipped, rejected = chip_smoke.subpix_paths(torch, tc, tv, out, steps, W, H)
+    return c, v, kind, ref, out.numpy(), clipped.numpy(), rejected.numpy()
+
+
+@pytest.mark.parametrize("case", chip_smoke.SUBPIX_CASES)
+def test_subpix_edge_set_matches_jnp_path(edge_set, case):
+    """Each case of the set against the jnp path of corner_subpix: median
+    < 1e-4 px, max < 1e-2 px; the border case reaches the clip-shifted
+    slice, the guard case the divergence guard, the interior case keeps its
+    refinements, invalid slots stay where they are."""
+    c, v, kind, ref, out, clipped, rejected = edge_set
+    m = kind == case
+    assert m.sum() >= 2
+    d = np.linalg.norm(out[m] - ref[m], axis=1)
+    assert np.median(d) < 1e-4, f"median {np.median(d)}"
+    assert d.max() < 1e-2, f"max {d.max()}"
+    moved = np.linalg.norm(out[m] - c[m], axis=1)
+    if case == "border":
+        assert clipped[m].sum() >= m.sum() // 3 and rejected[m].any()
+    elif case == "guard":
+        assert rejected[m].sum() >= m.sum() // 2 and not clipped[m].any()
+    elif case == "interior":
+        assert not rejected[m].any() and (moved > 0).all()
+    else:
+        assert not v[m].any()
+        np.testing.assert_array_equal(out[m], c[m])
+        np.testing.assert_array_equal(ref[m], c[m])
+
+
+def test_subpix_plain_step_count(monkeypatch):
+    """The plain version's step count is 0 for invalid slots, 1..20 for
+    valid ones, and the step at which the corner stopped: with ITERS cut to
+    a corner's count k its output is the 20-step output, with k - 1 it is
+    not (unless k is 20)."""
+    img, c, v, _ = chip_smoke.subpix_edge_set(H, W, seed=0)
+    det_img = _img(seed=3)
+    corners, _, valid = jfeat.detect_blockwise(
+        jnp.asarray(det_img), jnp.ones((H, W)), jnp.zeros(4, jnp.int32),
+        block_rows=2, block_cols=2, per_block=20, min_distance=9)
+    for image, pts, ok in ((img, c, v), (det_img, np.asarray(corners, np.float32), np.asarray(valid))):
+        args = (torch.tensor(image), torch.tensor(pts), torch.tensor(ok))
+        steps = torch.zeros(len(pts), dtype=torch.int32)
+        full = ksubpix.subpix_plain(*args, steps=steps)
+        k_all = steps.numpy()
+        assert (k_all[~ok] == 0).all() and ((k_all[ok] >= 1) & (k_all[ok] <= ksubpix.ITERS)).all()
+        moved = (full != args[1]).any(dim=1).numpy()
+        ks = sorted(set(k_all[ok].tolist()))
+        assert len(ks) >= 2
+        for k in ks:
+            sel = ok & (k_all == k)
+            monkeypatch.setattr(ksubpix, "ITERS", k)
+            assert torch.equal(ksubpix.subpix_plain(*args)[sel], full[sel]), k
+            if k < 20:
+                monkeypatch.setattr(ksubpix, "ITERS", k - 1)
+                early = ksubpix.subpix_plain(*args).numpy()
+                diff = (early != full.numpy()).any(axis=1)
+                assert diff[sel & moved].all(), k
+        monkeypatch.setattr(ksubpix, "ITERS", 20)

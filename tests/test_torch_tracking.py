@@ -151,14 +151,20 @@ def test_wrappers_refuse_non_cuda_devices():
         assert wrapper.launches == 0
 
 
-def test_step_counts_come_from_the_kernels_only():
-    """``iters`` (steps a slot took) is written by the CUDA kernels; the
-    plain versions do not count, so a CPU call that asks for it raises."""
-    for wrapper, _, args in _wrapper_cases("cpu"):
-        if wrapper in (klk.lk_pyr, ksubpix.subpix):
+def test_step_counts_subpix_also_on_cpu_lk_on_the_card_only():
+    """``iters`` (steps a slot took): a CPU subpix call fills it from the
+    plain version's count without a launch; the plain LK does not count, so
+    a CPU LK call that asks for it raises."""
+    for wrapper, plain, args in _wrapper_cases("cpu"):
+        iters = torch.zeros(8, dtype=torch.int32)
+        if wrapper is klk.lk_pyr:
             with pytest.raises(ValueError, match="iters"):
-                wrapper(*args, iters=torch.zeros(8, dtype=torch.int32))
-            assert wrapper.launches == 0
+                wrapper(*args, iters=iters)
+        elif wrapper is ksubpix.subpix:
+            steps = torch.zeros(8, dtype=torch.int32)
+            assert torch.equal(wrapper(*args, iters=iters), plain(*args, steps=steps))
+            assert torch.equal(iters, steps) and bool(((iters >= 1) & (iters <= 20)).all())
+        assert wrapper.launches == 0
 
 
 def test_entry_points_default_to_cuda():
