@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's visual frontend on one NVIDIA GPU (H100).
+"""Drive the PyTorch port on one NVIDIA GPU (H100): its visual frontend and
+its GNSS/INS replay.
 
 Run from the repository root, with no arguments:
 
@@ -30,7 +31,16 @@ of JAX. Phases, in order; any failure raises and the script exits nonzero:
    second pass with the ``_pyr_body`` and ``_lk_stage`` stages synchronized
    on both sides and timed;
 5. the same port on the CPU (the plain versions) against the CUDA run on a
-   small 320x240 sequence: identical track states and keyframe flags.
+   small 320x240 sequence: identical track states and keyframe flags;
+6. the GNSS/INS replay (``GinsModel``, device="cuda", earth rate on) on a
+   seeded 90 s drive at 200 Hz with an 8 s GNSS gap (``gins_world``, the
+   world of tests/gins_data.py), into a temporary output directory: its
+   accuracy, bias and output-file gates; its wall time, LM iterations and
+   host reads per epoch; a second run over the drive's first 40 s with each
+   stage synchronized and timed, 10 epochs of it under torch.profiler
+   (kernels per epoch, device busy share); then the port on CUDA against
+   the port on the CPU on the 24 s world, earth off and on: same state,
+   nodes and node times.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. The helpers take the port's modules as
@@ -375,6 +385,313 @@ def subpix_paths(torch, corners, valid, out, steps, W, H, half=5):
     return clipped, rejected
 
 
+# --------------------------------------------------------------------------
+# phase 6: the GNSS/INS replay (GinsModel) on a seeded synthetic drive
+# --------------------------------------------------------------------------
+
+GINS_RAW = dict(initlength=3, imudatarate=200, iswithearth=True,
+                imumodel=dict(arw=0.1, vrw=0.1, gbstd=400.0, abstd=400.0, corrtime=1.0),
+                gnssthreshold=20, optimize_windows_size=10, preint_samples=512)
+# The drive: 4 s still, 2 s accelerating, then a coordinated turn; 90 s, cut
+# from 300 s because the replay is host-bound on the card (~0.45 s an epoch),
+# and the phase must stay near 90 s.
+GINS_SECONDS = 90.0
+GINS_GAP = (45.0, 53.0)          # fixes dropped inside: 8 s = 1600 samples > 512
+GINS_TIMED_SECONDS = 40.0        # the stage-timed second run: the drive's first 40 s
+GINS_PROFILED = (20, 30)         # its epochs [20, 30) run under torch.profiler
+GINS_BG = (0.002, -0.001, 0.0005)
+GINS_CUDA_CPU_TOL = 1e-9         # m: node positions, CUDA against CPU (measured <= 5e-12 m)
+
+
+def gins_world(rate=200.0, bg_true=GINS_BG, ba_true=(0.01, -0.02, 0.03), gnss_noise=0.01,
+               gnss_std=0.02, lever=(-0.3, 0.01, 0.35), origin_deg=(30.5, 114.3, 40.0), seed=0,
+               turn_duration=18.0, with_earth=False):
+    """A seeded GNSS/INS drive with ground truth, the world of
+    tests/gins_data.py:make_gins_dataset built from the port on the CPU in
+    f64: 4 s stationary, 2 s accelerating at 1.3 m/s^2, then a coordinated
+    turn (0.05 rad/s) with motion-correlated vibration; gravity from
+    ``earth.gravity(origin)``; with earth rate, the gyro senses it through
+    the truth attitude (fixed point by iteration); truth is the port's
+    mechanization of the bias-free increments; the measured increments carry
+    the biases and white noise at 0.1 deg/sqrt(hr) and 0.1 m/s/sqrt(hr);
+    GNSS at whole seconds, the antenna through the lever arm plus noise.
+    Returns (imu_data, gnss_data, truth) numpy dicts, as the generator
+    there."""
+    import torch
+
+    from ic_gvins_tpu_torch.core import earth
+    from ic_gvins_tpu_torch.core import quaternion as quat
+    from ic_gvins_tpu_torch.core.types import ImuBatch, NavState
+    from ic_gvins_tpu_torch.ins import mechanization as mech
+
+    t64 = lambda a: torch.tensor(np.asarray(a, np.float64))  # noqa: E731
+    origin = np.array([np.deg2rad(origin_deg[0]), np.deg2rad(origin_deg[1]), origin_deg[2]])
+    g = float(earth.gravity(t64(origin)))
+    dt = 1.0 / rate
+    segs = [(4.0, np.zeros(3), np.array([0, 0, -g]), False),
+            (2.0, np.zeros(3), np.array([1.3, 0, -g]), True),
+            (turn_duration, np.array([0, 0, 0.05]), np.array([0.0, 0.13, -g]), True)]
+    w_list, f_list, t_off = [], [], 0.0
+    for dur, w, f, moving in segs:
+        n = int(round(dur * rate))
+        ts = t_off + dt * np.arange(n)
+        wseg, fseg = np.tile(w, (n, 1)).astype(float), np.tile(f, (n, 1)).astype(float)
+        if moving:  # vibration, so the zero-velocity detector sees motion
+            wseg += 0.02 * np.sin(2 * np.pi * 2.0 * ts)[:, None] * np.array([1.0, 0.5, 0.8])
+            fseg += 0.4 * np.sin(2 * np.pi * 1.3 * ts)[:, None] * np.array([0.6, 1.0, 0.7])
+        w_list.append(wseg)
+        f_list.append(fseg)
+        t_off += dur
+    w, f = np.concatenate(w_list), np.concatenate(f_list)
+    n = len(w)
+    t = dt * (np.arange(n) + 1)
+
+    iewn = np.zeros(3)
+    if with_earth:
+        iewn = earth.iewn(t64(origin), torch.zeros(3, dtype=torch.float64)).numpy()
+    cfg = mech.MechConfig(gravity=t64([0, 0, g]), iewn=t64(iewn), iswithearth=with_earth)
+    dtheta_true = w * dt
+    q_true = np.tile(np.array([0.0, 0, 0, 1.0]), (n, 1))
+    for _ in range(3 if with_earth else 1):
+        if with_earth:  # the earth rate seen through the attitude at each interval's start
+            q_prev = np.concatenate([[[0, 0, 0, 1.0]], q_true[:-1]])
+            dtheta_true = w * dt + quat.rotate(quat.conj(t64(q_prev)), t64(iewn)).numpy() * dt
+        imu_true = ImuBatch(time=t64(t), dt=t64(np.full(n, dt)), dtheta=t64(dtheta_true), dvel=t64(f * dt),
+                            odovel=torch.zeros(n, dtype=torch.float64))
+        _, traj = mech.mechanize_scan(cfg, NavState.identity(), imu_true)
+        p_true, q_true, v_true = (x.numpy() for x in traj)
+
+    rng = np.random.default_rng(seed)
+    arw, vrw = 0.1 * np.pi / 180.0 / 60.0, 0.1 / 60.0
+    dtheta_m = dtheta_true + np.asarray(bg_true) * dt + rng.normal(0, arw * np.sqrt(dt), (n, 3))
+    dvel_m = (f + np.asarray(ba_true)) * dt + rng.normal(0, vrw * np.sqrt(dt), (n, 3))
+    imu_data = dict(time=t, dt=np.full(n, dt), dtheta=dtheta_m, dvel=dvel_m, odovel=np.zeros(n))
+
+    gt_times = np.arange(1.0, t[-1], 1.0)
+    i = np.round(gt_times * rate).astype(int) - 1
+    lever = np.asarray(lever, np.float64)
+    gnss_local = p_true[i] + quat.rotate(t64(q_true[i]), t64(lever)).numpy() + rng.normal(0, gnss_noise, (len(i), 3))
+    gnss_blh = earth.local2global(t64(origin), t64(gnss_local)).numpy()
+    gnss_data = dict(time=gt_times, blh=gnss_blh, std=np.full((len(gt_times), 3), gnss_std))
+    truth = dict(time=t, p=p_true, q=q_true, v=v_true, origin=origin, lever=lever, gnss_local=gnss_local,
+                 iewn=iewn)
+    return imu_data, gnss_data, truth
+
+
+def gins_config(parse_config, truth, with_earth=True):
+    return parse_config(dict(GINS_RAW, iswithearth=with_earth, antlever=list(truth["lever"])))
+
+
+def node_errors(traj, truth, rate=200.0):
+    """(node times, |p - truth| at node times): the model's local frame is
+    anchored at the first GNSS antenna fix, the truth's at its start."""
+    off = truth["gnss_local"][0]
+    idx = np.round(traj[:, 0] * rate).astype(int) - 1
+    return traj[:, 0], np.linalg.norm(traj[:, 1:4] + off - truth["p"][idx], axis=1)
+
+
+class StageTimer:
+    """Synchronized host-clock timers around methods of classes (ms per call),
+    installed and removed as a context; ``counts`` counts calls of the
+    functions given in ``count``."""
+
+    def __init__(self, torch, targets, count=()):
+        self.torch, self.targets, self.count = torch, targets, count
+        self.ms = {name: [] for _, name in targets}
+        self.counts = {name: 0 for _, name in count}
+        self._saved = []
+
+    def __enter__(self):
+        torch = self.torch
+        for owner, name in self.targets:
+            fn = getattr(owner, name)
+
+            def timed(*args, _fn=fn, _name=name, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*args, **kw)
+                torch.cuda.synchronize()
+                self.ms[_name].append(1e3 * (time.perf_counter() - t0))
+                return out
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, timed)
+        for owner, name in self.count:
+            fn = getattr(owner, name)
+
+            def counted(*args, _fn=fn, _name=name, **kw):
+                self.counts[_name] += 1
+                return _fn(*args, **kw)
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        self._saved.clear()
+
+
+def device_activity(torch, prof, wall_ms):
+    """(kernels, busy ms) of a finished torch.profiler session: the device
+    kernels it recorded and the union of their and the copies' intervals,
+    read from the raw trace (parsing it into FunctionEvents takes seconds
+    per thousand events); (None, None) if it holds no device event."""
+    raw = getattr(prof.profiler, "kineto_results", None)
+    if raw is not None:
+        dev = [(e.name(), e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3) for e in raw.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    else:
+        dev = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return None, None
+    spans = sorted((s, e) for _, s, e in dev)
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    kernels = sum(1 for name, _, _ in dev if not name.lower().startswith(("memcpy", "memset")))
+    return kernels, min(busy / 1e3, wall_ms)
+
+
+def gins_phase(torch, card):
+    """Phase 6: the port's GinsModel on the card at full size, its gates, its
+    stage times, host reads, launches and busy share; then CUDA against the
+    CPU on the 24 s world, earth off and on."""
+    import tempfile
+
+    from ic_gvins_tpu_torch.engine import estimator as est_mod
+    from ic_gvins_tpu_torch.engine import replay as rep_mod
+    from ic_gvins_tpu_torch.engine.config import parse_config
+    from ic_gvins_tpu_torch.engine.host import fetch
+    from ic_gvins_tpu_torch.models import gins as gins_mod
+    from ic_gvins_tpu_torch.solver import lm as lm_mod
+
+    t_phase = t0 = time.perf_counter()
+    imu, gnss, truth = gins_world(turn_duration=GINS_SECONDS - 6.0, with_earth=True, seed=SEED)
+    keep = ~((gnss["time"] > GINS_GAP[0]) & (gnss["time"] < GINS_GAP[1]))
+    gnss = {k: v[keep] for k, v in gnss.items()}
+    print(f"[gins] world: {len(imu['time'])} IMU samples, {len(gnss['time'])} GNSS fixes "
+          f"(gap {GINS_GAP}), made in {time.perf_counter() - t0:.2f} s on the CPU")
+    cfg = gins_config(parse_config, truth)
+
+    # run 1: the replay as a user runs it, output files written
+    with tempfile.TemporaryDirectory() as outdir:
+        model = gins_mod.GinsModel(cfg, outdir=outdir, device=DEVICE)
+        assert model.device == torch.device(DEVICE)
+        reads0 = fetch.reads
+        with StageTimer(torch, [], count=[(lm_mod, "build_normal_blocks"),
+                                          (gins_mod.GinsModel, "_process_gnss")]) as counter:
+            torch.cuda.synchronize()
+            t_run = time.perf_counter()
+            traj = model.run(imu, gnss)
+            torch.cuda.synchronize()
+            t_run = time.perf_counter() - t_run
+        reads = fetch.reads - reads0
+        nav = np.loadtxt(f"{outdir}/gvins.nav")
+        trajcsv = np.loadtxt(f"{outdir}/trajectory.csv")
+        imuerr = np.fromfile(f"{outdir}/IMU_ERR.bin", dtype=np.float64)
+    epochs = counter.counts["_process_gnss"]
+    sim_s = float(imu["time"][-1] - imu["time"][0])
+    print(f"[gins] replay {sim_s:.0f} s simulated in {t_run:.3f} s wall: {sim_s / t_run:.2f} sim-s per "
+          f"wall-s; {epochs} epochs, {len(traj)} trajectory nodes ({card})")
+    print(f"[gins] per epoch: {counter.counts['build_normal_blocks'] / epochs:.2f} LM iterations, "
+          f"{reads / epochs:.2f} host reads ({reads} reads in the run) ({card})")
+
+    # gates
+    assert model.state == "INITIALIZING_INS", model.state
+    times, err = node_errors(traj, truth)
+    inside = (times > GINS_GAP[0]) & (times <= GINS_GAP[1] + 10.0)
+    steady = ~inside & (np.arange(len(times)) >= 2)
+    after = (times >= GINS_GAP[1] + 10.0)
+    post = err[after][:4]
+    bg = model.est.mixes[model.est.n_nodes - 1, 3:6]
+    print(f"[gins] node position error vs truth: mean {err[steady].mean():.4f} m, max {err[steady].max():.4f} m "
+          f"over {int(steady.sum())} nodes outside the gap and the 10 s after it; the 4 epochs from "
+          f"{GINS_GAP[1] + 10.0:.0f} s: mean {post.mean():.4f} m; gyro bias {bg} (truth {GINS_BG})")
+    assert err[steady].mean() < 0.08 and err[steady].max() < 0.30, "GINS accuracy outside the gap"
+    assert len(post) == 4 and post.mean() < 0.15, "GINS accuracy after the gap"
+    np.testing.assert_allclose(bg[:2], GINS_BG[:2], atol=1e-3, err_msg="gyro bias x/y")
+    # a row per 10 IMU samples from the alignment on (~4 s): >= 10 a second
+    assert nav.shape[1] == 11 and len(nav) >= 10 * (sim_s - 6.0) and abs(nav[0, 2] - 30.5) < 0.01, nav.shape
+    assert trajcsv.shape[1] == 8 and len(imuerr) % 8 == 0 and len(imuerr) > 0
+    print(f"[gins] outputs: gvins.nav {nav.shape}, trajectory.csv {trajcsv.shape}, IMU_ERR.bin "
+          f"{len(imuerr) // 8} records of 8 doubles")
+
+    # run 2: the drive's first GINS_TIMED_SECONDS, each stage synchronized on
+    # both sides; epochs GINS_PROFILED under the profiler
+    stages = [(rep_mod.InsPropagator, "propagate_to"), (est_mod.SlidingWindowEstimator, "optimize"),
+              (est_mod.SlidingWindowEstimator, "reintegrate_if_needed"),
+              (est_mod.SlidingWindowEstimator, "marginalize")]
+    from torch.profiler import ProfilerActivity, profile
+
+    process = gins_mod.GinsModel._process_gnss
+    calls, prof = [0], {}
+
+    def profiled(self, stream, g):
+        """Epochs GINS_PROFILED[0] .. GINS_PROFILED[1]-1 in one profiler session."""
+        calls[0] += 1
+        if calls[0] == GINS_PROFILED[0]:
+            torch.cuda.synchronize()
+            prof["session"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof["session"].__enter__()
+            prof["t0"] = time.perf_counter()
+        out = process(self, stream, g)
+        if calls[0] == GINS_PROFILED[1] - 1:
+            torch.cuda.synchronize()
+            prof["wall"] = 1e3 * (time.perf_counter() - prof["t0"])
+            prof["session"].__exit__(None, None, None)
+        return out
+
+    n_imu = int(np.searchsorted(imu["time"], GINS_TIMED_SECONDS, side="right"))
+    gins_mod.GinsModel._process_gnss = profiled
+    try:
+        with StageTimer(torch, stages) as timer:
+            gins_mod.GinsModel(cfg, device=DEVICE).run({k: v[:n_imu] for k, v in imu.items()},
+                                                       {k: v[gnss["time"] <= GINS_TIMED_SECONDS]
+                                                        for k, v in gnss.items()})
+    finally:
+        gins_mod.GinsModel._process_gnss = process
+    print(f"[gins] second run, the first {GINS_TIMED_SECONDS:.0f} s of the drive, each stage synchronized:")
+    for (_, name) in stages:
+        ms = np.asarray(timer.ms[name])
+        print(f"[gins] {name}: {len(ms)} calls, median {np.median(ms):.3f} ms, p90 "
+              f"{np.percentile(ms, 90):.3f} ms (synchronized on both sides) ({card})")
+    assert "wall" in prof, f"the timed run has {calls[0]} epochs, fewer than GINS_PROFILED {GINS_PROFILED}"
+    n_prof = GINS_PROFILED[1] - GINS_PROFILED[0]
+    kernels, busy = device_activity(torch, prof["session"], prof["wall"])
+    if kernels is None:
+        print("[gins] profiler: no device events in the trace; launches and busy share not measured")
+    else:
+        print(f"[gins] profiler, epochs {GINS_PROFILED[0]}-{GINS_PROFILED[1] - 1}: {kernels / n_prof:.0f} CUDA "
+              f"kernels per epoch, device busy {busy:.2f} of {prof['wall']:.2f} ms = "
+              f"{100 * busy / prof['wall']:.1f} % ({card})")
+
+    # CUDA against the CPU on the 24 s world
+    for with_earth in (False, True):
+        imu_s, gnss_s, truth_s = gins_world(with_earth=with_earth, seed=SEED)
+        cfg_s = gins_config(parse_config, truth_s, with_earth)
+        runs, secs = {}, {}
+        for device in (DEVICE, "cpu"):
+            t0 = time.perf_counter()
+            m = gins_mod.GinsModel(cfg_s, device=device)
+            tr = m.run(imu_s, gnss_s)
+            runs[device], secs[device] = (m.state, tr), time.perf_counter() - t0
+        (sg, tg), (sc, tc) = runs[DEVICE], runs["cpu"]
+        assert sg == sc == "INITIALIZING_INS" and tg.shape == tc.shape, (sg, sc, tg.shape, tc.shape)
+        assert np.array_equal(tg[:, 0], tc[:, 0]), "node times differ"
+        dp = float(np.abs(tg[:, 1:4] - tc[:, 1:4]).max())
+        print(f"[gins] 24 s world, earth {'on' if with_earth else 'off'}: CUDA and CPU {len(tg)} nodes, "
+              f"same times, max position difference {dp:.3g} m ({secs[DEVICE]:.1f} s and "
+              f"{secs['cpu']:.1f} s wall)")
+        assert dp < GINS_CUDA_CPU_TOL, f"CUDA and CPU differ by {dp} m"
+    print(f"[gins] phase 6 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import torch
 
@@ -608,6 +925,9 @@ def main():
     for rg, rc in zip(out[DEVICE], out["cpu"]):
         assert rg[:2] == rc[:2] and abs(rg[2] - rc[2]) <= 2 and abs(rg[3] - rc[3]) <= 2, (rg, rc)
     print(f"[small] 320x240 x14: CUDA and CPU states {[r[0] for r in out[DEVICE]]} agree")
+
+    # ---- phase 6: the GNSS/INS replay -------------------------------------
+    gins_phase(torch, card)
 
     print(json.dumps({"kernels": [records[k] for k in ("clahe_apply", "lk_pyr", "subpix")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -103,14 +103,19 @@ def test_port_landmarks_near_truth(both_runs):
 
 
 def test_port_imports_no_jax_or_yaml():
-    mods = ["ic_gvins_tpu_torch", "ic_gvins_tpu_torch.convert", "ic_gvins_tpu_torch.core.rotation_np",
-            "ic_gvins_tpu_torch.engine.config", "ic_gvins_tpu_torch.ops._build"] + [
+    mods = ["ic_gvins_tpu_torch", "ic_gvins_tpu_torch.convert", "ic_gvins_tpu_torch.ops._build"] + [
         f"ic_gvins_tpu_torch.{p}.{m}" for p, ms in
-        (("vision", ("map", "camera", "pyramid", "lk", "features", "ransac", "tracking")),
+        (("core", ("rotation_np", "quaternion", "earth", "earth_np", "types")),
+         ("engine", ("config", "host", "replay", "estimator", "output")),
+         ("ins", ("parallel_scan", "mechanization", "preintegration")),
+         ("factors", ("robust", "basic", "preint_factor", "reprojection", "marginalization")),
+         ("solver", ("problem", "lm")),
+         ("models", ("gins",)),
+         ("vision", ("map", "camera", "pyramid", "lk", "features", "ransac", "tracking")),
          ("ops", ("clahe", "lk", "subpix"))) for m in ms]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
-            "bad = [m for m in ('jax', 'yaml') if m in sys.modules]\n"
+            "bad = [m for m in ('jax', 'yaml', 'ic_gvins_tpu') if m in sys.modules]\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
