@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one NVIDIA GPU (H100): its visual frontend and
-its GNSS/INS replay.
+"""Drive the PyTorch port on one NVIDIA GPU (H100): its visual frontend, its
+GNSS/INS replay and its GNSS-visual-inertial replay.
 
 Run from the repository root, with no arguments:
 
@@ -40,7 +40,21 @@ of JAX. Phases, in order; any failure raises and the script exits nonzero:
    stage synchronized and timed, 10 epochs of it under torch.profiler
    (kernels per epoch, device busy share); then the port on CUDA against
    the port on the CPU on the 24 s world, earth off and on: same state,
-   nodes and node times.
+   nodes and node times;
+7. the GNSS-visual-inertial replay (``GvinsModel``, device="cuda", the
+   production widths: 10 keyframes, 24 node slots, 512 landmark and 2048
+   reprojection slots, 200 features) on a seeded 30 s drive (phase 6's world,
+   earth rate on) seen by the KAIST camera at 1278x1022 over rendered ground
+   blobs 9-13 m below: its gates (TRACKING_NORMAL, node error vs truth, >= 50
+   landmarks, output schemas, all three kernels launched inside the replay,
+   their counters zeroed just before it); its wall time, LM iterations and
+   host reads per keyframe episode, stage medians and a profiler window;
+   then the port on CUDA against the port on the CPU on the 24 s 320x240
+   world of tests/test_gvins_e2e.py: same states, keyframes and node times,
+   positions within 1e-3 m (the CPU run is this script as a child process,
+   ``--gvins-cpu-twin``, started with the phase on 4 cores of its own).
+   The kernels' ``launches`` are this replay's
+   (``launches_by_path`` keeps phase 4's too).
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. The helpers take the port's modules as
@@ -48,6 +62,8 @@ arguments, so ``tools/ab_compare.py`` can drive another checkout with them.
 """
 
 import json
+import os
+import pickle
 import subprocess
 import sys
 import time
@@ -692,6 +708,327 @@ def gins_phase(torch, card):
     print(f"[gins] phase 6 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# --------------------------------------------------------------------------
+# phase 7: the GNSS-visual-inertial replay (GvinsModel) on a rendered world
+# --------------------------------------------------------------------------
+
+# The drive of phase 6's world, 4 s still, 2 s accelerating, then turning at
+# 2.6 m/s; cut to 30 s because a keyframe episode costs a fraction of a
+# second of host time on the card and the phase must stay near 120 s.
+GVINS_SECONDS = 30.0
+GVINS_BLOB = (2.5, 8)            # blob sigma and half-width (px) at 1278x1022
+GVINS_DENSITY = 0.8              # blobs per m^2 of ground, 9-13 m below the body
+GVINS_PROFILED = (30, 33)        # keyframe episodes [30, 33) run under torch.profiler
+GVINS_CUDA_CPU_TOL = 1e-3        # m: node positions, CUDA against CPU on the small world
+GVINS_TWIN_CORES = 4             # the CPU twin's cores and torch threads (a child process)
+# production widths (the GvinsConfig defaults), extrinsic and td estimation
+# off: the planar drive observes them weakly (tests/test_gvins_e2e.py:55-58)
+GVINS_RAW = dict(GINS_RAW, optimize_windows_size=10, node_slots=24, landmark_slots=512, gnss_slots=24,
+                 reproj_slots=2048, preint_samples=512, optimize_num_iterations=20, track_max_features=200,
+                 optimize_estimate_extrinsic=False, optimize_estimate_td=False, track_min_parallax=20,
+                 track_max_interval=0.5, reprojection_error_std=1.5, is_use_visualization=False)
+# tests/test_gvins_e2e.py's world and configuration: 320x240, earth off
+SMALL_CAMERA = ([250.0, 250.0, 160.0, 120.0], [-0.05, 0.01, 0.0, 0.0], [320, 240])
+SMALL_BLOB = (1.8, 6)
+SMALL_RAW = dict(GVINS_RAW, iswithearth=False, optimize_windows_size=8, node_slots=20, landmark_slots=256,
+                 gnss_slots=20, reproj_slots=1024, track_max_features=120)
+
+
+def gvins_config(parse_config, truth, raw, camera_cfg):
+    intrinsic, distortion, resolution = camera_cfg
+    return parse_config(dict(raw, antlever=list(truth["lever"]), cam0=dict(
+        intrinsic=intrinsic, distortion=distortion, resolution=resolution,
+        q_b_c=[0.0, 0.0, 0.0, 1.0], t_b_c=[0.0, 0.0, 0.0], td_b_c=0.0)))   # camera = body (FRD, z down)
+
+
+def ground_frame(cam_mod, camera, pts_w, Rcw, tcw, sigma, half):
+    """A grayscale frame of ``pts_w`` seen from camera pose (Rcw, tcw):
+    Gaussian blobs of alternating sign (+-80 gray, ``sigma`` px, cut at
+    ``half`` px) at the DISTORTED projections of the points more than 1 m in
+    front, over a flat background (90 gray). The renderer of
+    tests/test_gvins_e2e.py (sigma 1.8, half 6 there). The background is flat:
+    an image-fixed texture tracks as phantom zero-flow features that no 3D
+    point explains, and corrupts the bundle adjustment."""
+    width, height = camera.width, camera.height
+    img = np.full((height, width), 90.0)
+    pc = (pts_w - tcw) @ Rcw
+    valid = pc[:, 2] > 1.0
+    if valid.any():
+        dis = cam_mod.distort_points(camera, cam_mod.cam2pixel(camera, pc[valid]))
+        amps = 80.0 * np.where(np.arange(len(pts_w)) % 2 == 0, 1.0, -1.0)[valid]
+        inb = (dis[:, 0] > -5) & (dis[:, 0] < width + 5) & (dis[:, 1] > -5) & (dis[:, 1] < height + 5)
+        for (x, y), a in zip(dis[inb], amps[inb]):
+            x0, x1 = max(int(x) - half, 0), min(int(x) + half + 1, width)
+            y0, y1 = max(int(y) - half, 0), min(int(y) + half + 1, height)
+            if x1 > x0 and y1 > y0:
+                xs = np.arange(x0, x1, dtype=np.float64)[None, :]
+                ys = np.arange(y0, y1, dtype=np.float64)[:, None]
+                img[y0:y1, x0:x1] += a * np.exp(-((xs - x) ** 2 + (ys - y) ** 2) / (2 * sigma**2))
+    return np.clip(img, 0, 255)
+
+
+def e2e_scene():
+    """The ground scene of tests/test_gvins_e2e.py: 800 points 9-13 m below
+    the drive of the 24 s world."""
+    rng = np.random.default_rng(42)
+    return np.stack([rng.uniform(-10, 55, 800), rng.uniform(-25, 25, 800), rng.uniform(9, 13, 800)], axis=1)
+
+
+def ground_scene(truth, seed, density=GVINS_DENSITY, margin=12.0):
+    """Points 9-13 m below the drive, ``density`` per m^2 over the drive's
+    horizontal extent plus ``margin`` m (the camera sees ~16 x 13 m of
+    ground at 10 m with the KAIST intrinsics)."""
+    lo, hi = truth["p"][:, :2].min(axis=0) - margin, truth["p"][:, :2].max(axis=0) + margin
+    n = int(density * np.prod(hi - lo))
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(lo[0], hi[0], n), rng.uniform(lo[1], hi[1], n), rng.uniform(9.0, 13.0, n)], axis=1)
+
+
+def gvins_frames(cam_mod, rot_np, camera, truth, pts_w, blob, rate=200.0, dtype=np.float64):
+    """Frames at 10 Hz from 0.05 s to 0.2 s before the drive's end, the
+    camera at the true body pose (camera = body): (times, images)."""
+    frame_times = np.arange(0.05, truth["time"][-1] - 0.2, 0.1)
+    images = []
+    for t in frame_times:
+        i = min(int(round(t * rate)) - 1, len(truth["p"]) - 1)
+        images.append(ground_frame(cam_mod, camera, pts_w, rot_np.to_matrix(truth["q"][i]), truth["p"][i],
+                                   *blob).astype(dtype))
+    return frame_times, images
+
+
+class FrameLog:
+    """Wraps ``GvinsModel._process_frame`` while installed as a context: per
+    processed frame its host reads (``fetch.reads``), whether it ran a
+    keyframe episode, its wall seconds, and the model's state and node count
+    after it; optionally a torch.profiler session over keyframe episodes
+    ``profiled`` = (first, end)."""
+
+    def __init__(self, torch, gvins_mod, fetch, profiled=None):
+        self.torch, self.cls, self.fetch, self.profiled = torch, gvins_mod.GvinsModel, fetch, profiled
+        self.rows, self.prof, self.prof_wall_ms, self.prof_frames_s = [], None, None, 0.0
+
+    def __enter__(self):
+        torch, fetch, process = self.torch, self.fetch, self.cls._process_frame
+        self._process = process
+
+        def logged(model, *args):
+            episodes = sum(model.tier_counts.values())
+            if self.profiled and episodes == self.profiled[0] and self.prof is None:
+                torch.cuda.synchronize()
+                from torch.profiler import ProfilerActivity, profile
+
+                self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                self._t_prof = time.perf_counter()
+            r0, t0 = fetch.reads, time.perf_counter()
+            out = process(model, *args)
+            ran = sum(model.tier_counts.values()) - episodes
+            self.rows.append((fetch.reads - r0, ran, time.perf_counter() - t0, model.state, model.est.n_nodes))
+            if self.prof is not None and self.prof_wall_ms is None:
+                self.prof_frames_s += self.rows[-1][2]
+                if sum(model.tier_counts.values()) >= self.profiled[1]:
+                    torch.cuda.synchronize()
+                    self.prof_wall_ms = 1e3 * (time.perf_counter() - self._t_prof)
+                    self.prof.__exit__(None, None, None)
+            return out
+        self.cls._process_frame = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._process_frame = self._process
+        if self.prof is not None and self.prof_wall_ms is None:   # the run ended inside the window
+            self.prof.__exit__(None, None, None)
+            self.prof = None
+
+    def states(self):
+        return [(r[3], r[4]) for r in self.rows]
+
+
+def pct(a, q):
+    return float(np.percentile(np.asarray(a, np.float64), q)) if len(a) else float("nan")
+
+
+def gvins_small_run(device, cores=None):
+    """The port's GvinsModel on tests/test_gvins_e2e.py's 320x240 world over
+    the 24 s drive (earth off) on ``device``: (the state and node count after
+    every processed frame, the trajectory, the tier counts, the final state,
+    wall seconds). With ``cores``, it keeps to the host's last ``cores``
+    cores with as many torch threads (the CPU twin, in a child process)."""
+    import torch
+
+    from ic_gvins_tpu_torch.core import rotation_np
+    from ic_gvins_tpu_torch.engine.config import parse_config
+    from ic_gvins_tpu_torch.engine.host import fetch
+    from ic_gvins_tpu_torch.models import gvins as gvins_mod
+    from ic_gvins_tpu_torch.vision import camera as cam
+
+    if cores:
+        allowed = sorted(os.sched_getaffinity(0))
+        cores = min(cores, max(len(allowed) // 2, 1))
+        os.sched_setaffinity(0, allowed[-cores:])
+        torch.set_num_threads(cores)
+    imu, gnss, truth = gins_world(with_earth=False, seed=SEED)
+    small = cam.PinholeCamera.from_config(*SMALL_CAMERA)
+    times, images = gvins_frames(cam, rotation_np, small, truth, e2e_scene(), SMALL_BLOB)
+    cfg = gvins_config(parse_config, truth, SMALL_RAW, SMALL_CAMERA)
+    t0 = time.perf_counter()
+    with FrameLog(torch, gvins_mod, fetch) as log:
+        model = gvins_mod.GvinsModel(cfg, device=device)
+        traj = model.run(imu, gnss, times, lambda k: images[k])
+    return log.states(), traj, model.tier_counts, model.state, time.perf_counter() - t0
+
+
+def gvins_phase(torch, card, wrappers):
+    """Phase 7: the port's GvinsModel on the card at the production widths
+    on a 30 s rendered 1278x1022 drive (``gvins_replay``), then CUDA against
+    the CPU on the small world of tests/test_gvins_e2e.py. The CPU twin is
+    this script run again as a child process (``--gvins-cpu-twin``) from the
+    phase's start, on cores of its own, so that it is done by the time the
+    card's runs are; the child is killed however the phase ends. Returns the
+    kernels' launches in the replay."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "cpu_twin.pkl")
+        child = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gvins-cpu-twin", out],
+                                 stdout=sys.stderr)
+        try:
+            launches = gvins_replay(torch, card, wrappers)
+            sg, tg, tiers_g, state_g, secs_g = gvins_small_run(DEVICE)
+            t_wait = time.perf_counter()
+            rc = child.wait(timeout=900)
+            t_wait = time.perf_counter() - t_wait
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        assert rc == 0, f"the CPU twin exited with {rc}"
+        with open(out, "rb") as f:
+            sc, tc, tiers_c, state_c, secs_c = pickle.load(f)
+    assert sg == sc, "state sequences differ"
+    assert state_g == state_c == "TRACKING_NORMAL" and tiers_g == tiers_c, (state_g, state_c, tiers_g, tiers_c)
+    assert tg.shape == tc.shape and np.array_equal(tg[:, 0], tc[:, 0]), "node times differ"
+    dp = float(np.abs(tg[:, 1:4] - tc[:, 1:4]).max())
+    print(f"[gvins] small world 320x240, 24 s: CUDA and CPU {len(sg)} frames with the same states, "
+          f"{sum(tiers_g.values())} keyframe episodes, {len(tg)} nodes at the same times, max position "
+          f"difference {dp:.3g} m ({secs_g:.1f} s wall on {DEVICE}; {secs_c:.1f} s on the CPU in the child "
+          f"process with {GVINS_TWIN_CORES} threads, {t_wait:.1f} s of it waited for)")
+    assert dp < GVINS_CUDA_CPU_TOL, f"CUDA and CPU differ by {dp} m"
+    print(f"[gvins] phase 7 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def gvins_replay(torch, card, wrappers):
+    """The port's GvinsModel on the card at the production widths on a 30 s
+    rendered 1278x1022 drive: its gates (state, accuracy, landmarks, output
+    schemas, the three kernels launched inside the replay, their counters
+    zeroed just before it), wall time, per-episode LM iterations and host
+    reads, stage medians, a profiler window. Returns the launches."""
+    import tempfile
+
+    from ic_gvins_tpu_torch.core import rotation_np
+    from ic_gvins_tpu_torch.engine.config import parse_config
+    from ic_gvins_tpu_torch.engine.host import fetch
+    from ic_gvins_tpu_torch.models import gvins as gvins_mod
+    from ic_gvins_tpu_torch.vision import camera as cam
+    from ic_gvins_tpu_torch.vision import tracking as trk
+
+    t0 = time.perf_counter()
+    imu, gnss, truth = gins_world(turn_duration=GVINS_SECONDS - 6.0, with_earth=True, seed=SEED)
+    camera = cam.PinholeCamera.from_config(KAIST_INTRINSIC, KAIST_DISTORTION, [W, H])
+    pts_w = ground_scene(truth, SEED + 7)
+    frame_times, images = gvins_frames(cam, rotation_np, camera, truth, pts_w, GVINS_BLOB, dtype=np.float32)
+    cfg = gvins_config(parse_config, truth, GVINS_RAW, (KAIST_INTRINSIC, KAIST_DISTORTION, [W, H]))
+    print(f"[gvins] world: {len(imu['time'])} IMU samples, {len(gnss['time'])} GNSS fixes, {len(frame_times)} "
+          f"frames {W}x{H} of {len(pts_w)} ground blobs, made in {time.perf_counter() - t0:.2f} s on the CPU")
+
+    track_ms, marg_ms = [], []
+    track, marginalize = trk.Tracker.track, gvins_mod.GvinsModel._marginalize_visual
+
+    def timed_track(self, *args):
+        out = track(self, *args)
+        track_ms.append(self.track_ms)
+        return out
+
+    def timed_marginalize(self):
+        out = marginalize(self)
+        marg_ms.append(self.timecosts[2])
+        return out
+
+    with tempfile.TemporaryDirectory() as outdir:
+        model = gvins_mod.GvinsModel(cfg, outdir=outdir, device=DEVICE)
+        assert model.device == torch.device(DEVICE) and model.tracker.device == torch.device(DEVICE)
+        trk.Tracker.track, gvins_mod.GvinsModel._marginalize_visual = timed_track, timed_marginalize
+        try:
+            with FrameLog(torch, gvins_mod, fetch, GVINS_PROFILED) as log:
+                for w in wrappers.values():
+                    w.launches = 0
+                reads0 = fetch.reads
+                torch.cuda.synchronize()
+                t_run = time.perf_counter()
+                traj = model.run(imu, gnss, frame_times, lambda k: images[k])
+                torch.cuda.synchronize()
+                t_run = time.perf_counter() - t_run
+                launches = {k: w.launches for k, w in wrappers.items()}
+                reads = fetch.reads - reads0
+        finally:
+            trk.Tracker.track, gvins_mod.GvinsModel._marginalize_visual = track, marginalize
+        load = lambda name: np.atleast_2d(np.loadtxt(f"{outdir}/{name}"))  # noqa: E731
+        stats, tracking, nav = load("statistics.txt"), load("tracking.txt"), load("gvins.nav")
+        n_mappoints = len(load("mappoint.txt")) if os.path.getsize(f"{outdir}/mappoint.txt") else 0
+
+    sim_s = float(imu["time"][-1] - imu["time"][0])
+    episodes = sum(model.tier_counts.values())
+    ep_rows = [r for r in log.rows if r[1]]
+    print(f"[gvins] replay {sim_s:.0f} s simulated in {t_run:.3f} s wall: {sim_s / t_run:.3f} sim-s per wall-s "
+          f"({sim_s / (t_run - log.prof_frames_s):.3f} without the {log.prof_frames_s:.2f} s of the profiled "
+          f"frames); images rendered beforehand; the small world's CPU twin ran alongside in a child process "
+          f"on its own cores ({card})")
+    print(f"[gvins] {len(log.rows)} frames tracked, {episodes} keyframe episodes, solver tiers "
+          f"{model.tier_counts}, marginalization tiers {model.tier_counts_marg}, {len(marg_ms)} "
+          f"marginalizations; {reads} host reads in the run")
+    changes = [(i, s) for i, (s, _) in enumerate(log.states()) if i == 0 or s != log.states()[i - 1][0]]
+    print(f"[gvins] state by processed frame: {changes}")
+    print(f"[gvins] per episode (LM iterations pass 1, pass 2, host reads of its frame): "
+          f"{[(int(a), int(b), r[0]) for (a, b), r in zip(stats[:, 8:10], ep_rows)]}")
+    print(f"[gvins] host reads per frame: episode frames median {pct([r[0] for r in ep_rows], 50):.0f}, "
+          f"other frames median {pct([r[0] for r in log.rows if not r[1]], 50):.0f}")
+    for name, vals in (("track_ms", track_ms), ("pass-1 solve ms", stats[:, 10]),
+                       ("pass-2 solve ms", stats[:, 11]), ("marginalization ms", marg_ms),
+                       ("episode frame ms", [1e3 * r[2] for r in ep_rows]),
+                       ("other frame ms", [1e3 * r[2] for r in log.rows if not r[1]])):
+        print(f"[gvins] {name}: {len(vals)} values, median {pct(vals, 50):.3f}, p90 {pct(vals, 90):.3f} "
+              f"({card})")
+    if log.prof_wall_ms is None:
+        print(f"[gvins] profiler: the run has {episodes} episodes, the window {GVINS_PROFILED} was not completed")
+    else:
+        kernels, busy = device_activity(torch, log.prof, log.prof_wall_ms)
+        n_prof = GVINS_PROFILED[1] - GVINS_PROFILED[0]
+        if kernels is None:
+            print("[gvins] profiler: no device events in the trace; launches and busy share not measured")
+        else:
+            print(f"[gvins] profiler, episodes {GVINS_PROFILED[0]}-{GVINS_PROFILED[1] - 1} and the frames "
+                  f"between: {kernels / n_prof:.0f} CUDA kernels per episode, device busy {busy:.2f} of "
+                  f"{log.prof_wall_ms:.2f} ms = {100 * busy / log.prof_wall_ms:.1f} % ({card})")
+
+    # gates
+    times, err = node_errors(traj, truth)
+    print(f"[gvins] state {model.state}; node position error vs truth over {len(err)} nodes: mean "
+          f"{err.mean():.4f} m, max {err.max():.4f} m; {len(model.vmap.landmarks)} landmarks, "
+          f"{len(model.vmap.keyframes)} keyframes in the map; launches in the replay {launches}")
+    assert model.state == "TRACKING_NORMAL", model.state
+    assert err.mean() < 0.12 and err.max() < 0.4, "GVINS accuracy"
+    assert len(model.vmap.landmarks) >= 50, "fewer than 50 landmarks"
+    assert all(n > 0 for n in launches.values()), f"a kernel was not launched in the replay: {launches}"
+    assert stats.shape[1] == 15 and len(stats) >= 3 and np.median(stats[:, 6]) < 3.0, stats.shape
+    assert tracking.shape[1] == 7 and nav.shape[1] == 11 and n_mappoints > 0
+    print(f"[gvins] outputs: statistics.txt {stats.shape} (median mean reprojection error "
+          f"{np.median(stats[:, 6]):.3f} px), tracking.txt {tracking.shape}, gvins.nav {nav.shape}, "
+          f"mappoint.txt {n_mappoints} points")
+    return launches
+
+
 def main():
     import torch
 
@@ -929,6 +1266,12 @@ def main():
     # ---- phase 6: the GNSS/INS replay -------------------------------------
     gins_phase(torch, card)
 
+    # ---- phase 7: the GNSS-visual-inertial replay --------------------------
+    replay_launches = gvins_phase(torch, card, wrappers)
+    for k, n in replay_launches.items():
+        records[k]["launches_by_path"] = {"frontend_slice": records[k]["launches"], "gvins_replay": int(n)}
+        records[k]["launches"] = int(n)
+
     print(json.dumps({"kernels": [records[k] for k in ("clahe_apply", "lk_pyr", "subpix")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -937,4 +1280,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gvins-cpu-twin"]:    # phase 7's child process
+        with open(sys.argv[2], "wb") as f:
+            pickle.dump(gvins_small_run("cpu", GVINS_TWIN_CORES), f)
+        sys.exit(0)
     sys.exit(main())

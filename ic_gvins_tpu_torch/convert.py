@@ -81,3 +81,9 @@ def factor_tables(tree, device="cuda"):
 
 def preint_summary(tree, device="cuda"):
     return _tree(PreintSummary, tree, device)
+
+
+def marg_prior(tree, device="cuda"):
+    """The estimator's marginalization prior (``SlidingWindowEstimator.
+    marg_prior``): H0, Jte0, c0, its linearization point x0, valid."""
+    return _tree(MargPrior, tree, device)

@@ -130,7 +130,9 @@ class SlidingWindowEstimator:
         self.prior_cfg = None   # dict for init priors, or None
         self.ext = np.concatenate([np.zeros(3), np.array([0, 0, 0, 1.0])])
         self.td = 0.0
+        self.invdepths = np.full(wcfg.L, 0.1)  # of the last solve, at its tier
         self.last_solve_times = (0.0, 0.0)  # (pass1 s, pass2 s), set by optimize
+        self.last_iterations = (0, 0)       # accepted LM steps (pass 1, pass 2), set by optimize
 
     # ------------------------------------------------------------------
     # node management
@@ -229,6 +231,14 @@ class SlidingWindowEstimator:
         self.poses[self.n_nodes - 1] = np.concatenate([summ.end_p[0], summ.end_q[0]])
         self.mixes[self.n_nodes - 1] = np.concatenate([summ.end_v[0], self.mixes[k, 3:]])
         return self.latest_state()
+
+    def segment_samples(self, k):
+        """Samples stored for interval slot ``k`` (its anchor included), or
+        None if the slot holds no interval (the JAX package's
+        ``segments_np[k] is None``)."""
+        if self.preint_table.valid[k] != 1.0:
+            return None
+        return int(np.sum(self.seg_store.dt[k] > 0)) + 1
 
     def _pad_segment(self, series):
         S = self.S
@@ -332,19 +342,29 @@ class SlidingWindowEstimator:
     # optimize / reintegrate / marginalize
     # ------------------------------------------------------------------
 
-    def _store_params(self, params: WindowParams):
-        self.poses, self.mixes, self.ext, td = fetch(params.poses, params.mixes, params.ext, params.td)
+    def _store_params(self, params: WindowParams, *extra):
+        """Read the solved parameters into the host mirrors, with ``extra``
+        tensors in the same transfer (returned as numpy)."""
+        self.poses, self.mixes, self.ext, td, self.invdepths, *rest = fetch(
+            params.poses, params.mixes, params.ext, params.td, params.invdepths, *extra)
         self.td = float(td)
+        return rest
 
     def optimize(self, num_iterations=50, *, two_pass=False, tables=None, params=None, wc=None):
-        """One optimization episode; updates the host state. Returns
-        (params, tables, stats). wc: the tier of tables/params (default full)."""
+        """One optimization episode; updates the host state (``poses``,
+        ``mixes``, ``ext``, ``td``, ``invdepths``) in one read. Returns
+        (params, tables, stats). wc: the tier of tables/params (default full).
+        A two-pass episode also sets ``last_iterations`` (accepted LM steps
+        of each pass) and ``last_solve_times`` on the host, in the same
+        read."""
         wc = wc or self.wcfg
         tables = self.build_tables(wc=wc) if tables is None else tables
         params = self.build_params(wc=wc) if params is None else params
         if two_pass:
             # pass 1 / surgery / pass 2 timed apart (statistics.txt cols 10-11,
-            # ic_gvins.cc:1019-1022): n/4 robust, the rest de-robustified
+            # ic_gvins.cc:1019-1022): n/4 robust, the rest de-robustified.
+            # Each solve ends in its last `done` read, so the clock brackets
+            # the device work too.
             n1 = max(num_iterations // 4, 1)
             n2 = max(num_iterations - n1, 1)
             t0 = time.perf_counter()
@@ -356,15 +376,20 @@ class SlidingWindowEstimator:
             t_pass2 = time.perf_counter() - t0
             self.last_solve_times = (t_pass1, t_pass2)
             stats = (s1, s2, n_gnss_out, n_reproj_out)
-            self._absorb_gnss_stds(tables2.gnss)   # the reference mutates gnsslist_
+            g = tables2.gnss
+            stds, idxs, valid, it1, it2 = self._store_params(params, g.std, g.idx, g.valid,
+                                                             s1.iterations, s2.iterations)
+            self.last_iterations = (int(it1), int(it2))
+            self._absorb_gnss_stds(stds, idxs, valid)   # the reference mutates gnsslist_
         else:
             params, stats, _ = lm.solve(params, tables, wc, num_iterations)
             tables2 = tables
-        self._store_params(params)
+            self._store_params(params)
         return params, tables2, stats
 
-    def _absorb_gnss_stds(self, gnss_table: GnssTable):
-        stds, idxs, valid = fetch(gnss_table.std, gnss_table.idx, gnss_table.valid)
+    def _absorb_gnss_stds(self, stds, idxs, valid):
+        """Persist pass 2's GNSS std inflation (host arrays of the surgery's
+        GnssTable) into the entries it was built from."""
         slot = 0
         for entry in self.gnss_entries:
             k = self._node_index_of_time(entry.time)
@@ -423,3 +448,55 @@ class SlidingWindowEstimator:
         self.preint_table.valid[self.wcfg.P - num_marg:] = 0.0
         _np_roll(self.seg_store, num_marg)
         return lm_m
+
+    # ------------------------------------------------------------------
+    # structure edits of the visual pipeline (insertNewGnssTimeNode,
+    # removeUnusedTimeNode)
+    # ------------------------------------------------------------------
+
+    def insert_prior_slot(self, k):
+        """Remap the prior after a mid-interval node insertion at slot ``k``
+        (``marg.insert_node_slot_into_prior``), after checking that its last
+        node slot is free (one read)."""
+        if self.marg_prior is None:
+            return
+        marg.check_insert_capacity(self.marg_prior, self.wcfg)
+        self.marg_prior = marg.insert_node_slot_into_prior(self.marg_prior, self.wcfg, int(k))
+
+    def truncate_to(self, k):
+        """Drop nodes [k, n_nodes) and their intervals (the node-removal leg
+        of insertNewGnssTimeNode, ic_gvins.cc:864-876); host mirrors only.
+        Returns the dropped node times, for the caller to re-add."""
+        assert 1 <= k <= self.n_nodes
+        dropped = list(self.times[k:self.n_nodes])
+        self.preint_table.valid[max(k - 1, 0):] = 0.0
+        self.n_nodes = k
+        return dropped
+
+    def merge_node(self, k):
+        """Remove interior node ``k`` by merging intervals k-1 and k
+        (removeUnusedTimeNode, ic_gvins.cc:754-789): the two segments joined
+        and re-padded into slot k-1 and re-preintegrated from node k-1 (one
+        batched device call and its read), the node and interval mirrors
+        rolled left over k, and node k Schur-marginalized out of the prior
+        with its columns compacted (``marg.drop_node_from_prior``)."""
+        assert 1 <= k <= self.n_nodes - 1
+        na, nb = self.segment_samples(k - 1), self.segment_samples(k)
+        merged = {f: np.concatenate([self.seg_store[i][k - 1][:na], self.seg_store[i][k][1:nb]], axis=0)
+                  for i, f in enumerate(ImuBatch._fields)}
+        seg = self._pad_segment(merged)
+        _np_set(self.seg_store, k - 1, [seg[f] for f in ImuBatch._fields])
+        self._preintegrate([k - 1])   # from node k-1, which the roll below leaves in place
+
+        n = self.n_nodes
+        self.times[k:n - 1] = self.times[k + 1:n]
+        self.poses[k:n - 1] = self.poses[k + 1:n]
+        self.mixes[k:n - 1] = self.mixes[k + 1:n]
+        self.n_nodes = n - 1
+        # interval slots above k move one left; the last slot empties
+        for a in (*self.preint_table.summ, self.preint_table.valid, *self.seg_store):
+            a[k:-1] = a[k + 1:].copy()
+            a[-1] = 0
+        self.preint_table.valid[k - 1] = 1.0
+        if self.marg_prior is not None:
+            self.marg_prior = marg.drop_node_from_prior(self.marg_prior, self.wcfg, int(k))

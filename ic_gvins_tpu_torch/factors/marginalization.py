@@ -20,6 +20,7 @@ with ``torch.where``, with no host branch.
 import torch
 import torch.nn.functional as F
 
+from ..engine.host import fetch
 from ..solver.problem import POSE_LOCAL, FactorTables, MargPrior, WindowConfig, WindowParams, build_normal_blocks
 
 RIDGE = 1e-9       # prior null-direction pin (relative, equilibrated scale)
@@ -200,8 +201,8 @@ def check_insert_capacity(prior: MargPrior, cfg: WindowConfig):
     of its scale) in inactive tail columns. A host check (one read)."""
     ND = cfg.node_dim
     nd = cfg.N * ND
-    tail = float(torch.abs(prior.H0[:, nd - ND: nd]).max())
-    scale = float(torch.abs(prior.H0).max())
+    tail, scale = (float(x) for x in fetch(torch.abs(prior.H0[:, nd - ND: nd]).max(),
+                                           torch.abs(prior.H0).max()))
     if tail > 1e-9 * max(scale, 1e-30):
         raise RuntimeError(
             f"insert_node_slot_into_prior would drop nonzero prior columns on the last node slot "

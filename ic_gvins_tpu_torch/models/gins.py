@@ -69,31 +69,12 @@ class GinsModel:
         isyawvalid]). Runs in inference mode: no autograd bookkeeping on the
         thousands of small ops an epoch runs."""
         stream = ImuStream(imu_data)
-        gtime = np.asarray(gnss_data["time"], np.float64)
-        gblh = np.asarray(gnss_data["blh"], np.float64)
-        gstd = np.asarray(gnss_data["std"], np.float64)
-        gyaw = np.asarray(gnss_data.get("yaw", np.zeros(len(gtime))), np.float64)
-        gyawvalid = np.asarray(gnss_data.get("isyawvalid", np.zeros(len(gtime), bool)), bool)
         if self.outdir:
             self.out = OutputFiles(self.outdir)
 
         try:
             last_gnss = None
-            for k in range(len(gtime)):
-                # ingest gates (fusion_ros.cc:178-198)
-                if (gstd[k] == 0).all() or np.linalg.norm(gstd[k]) > self.cfg.gnssthreshold:
-                    continue
-                if self.cfg.isusegnssoutage and gtime[k] >= self.cfg.gnssoutagetime:
-                    continue
-                if self.origin is None:
-                    # the first fix defines the world origin + local gravity
-                    self.origin = gblh[k].copy()
-                    self.gravity = float(earth_np.gravity(self.origin))
-                    blh_local = np.zeros(3)
-                else:
-                    blh_local = earth_np.global2local(self.origin, gblh[k])
-                gnss = dict(time=float(gtime[k]), blh=blh_local, std=gstd[k].copy(),
-                            yaw=float(gyaw[k]), isyawvalid=bool(gyawvalid[k]))
+            for gnss in self._gnss_fixes(gnss_data):
                 if self.state == "INITIALIZING":
                     if last_gnss is not None:
                         self._try_initialize(stream, last_gnss, gnss)
@@ -109,6 +90,32 @@ class GinsModel:
             if self.out:
                 self.out.close()
         return np.asarray(self.trajectory) if self.trajectory else np.zeros((0, 8))
+
+    def _gnss_fixes(self, gnss_data):
+        """The fixes that pass the ingest gates (fusion_ros.cc:178-198), in
+        the order given, as dicts (time, blh, std, yaw, isyawvalid) with blh
+        in the local frame. The first sets the world origin and local
+        gravity."""
+        gtime = np.asarray(gnss_data["time"], np.float64)
+        gblh = np.asarray(gnss_data["blh"], np.float64)
+        gstd = np.asarray(gnss_data["std"], np.float64)
+        gyaw = np.asarray(gnss_data.get("yaw", np.zeros(len(gtime))), np.float64)
+        gyawvalid = np.asarray(gnss_data.get("isyawvalid", np.zeros(len(gtime), bool)), bool)
+        fixes = []
+        for k in range(len(gtime)):
+            if (gstd[k] == 0).all() or np.linalg.norm(gstd[k]) > self.cfg.gnssthreshold:
+                continue
+            if self.cfg.isusegnssoutage and gtime[k] >= self.cfg.gnssoutagetime:
+                continue
+            if self.origin is None:
+                self.origin = gblh[k].copy()
+                self.gravity = float(earth_np.gravity(self.origin))
+                blh_local = np.zeros(3)
+            else:
+                blh_local = earth_np.global2local(self.origin, gblh[k])
+            fixes.append(dict(time=float(gtime[k]), blh=blh_local, std=gstd[k].copy(),
+                              yaw=float(gyaw[k]), isyawvalid=bool(gyawvalid[k])))
+        return fixes
 
     # ------------------------------------------------------------------
 
@@ -175,19 +182,21 @@ class GinsModel:
 
     # ------------------------------------------------------------------
 
-    def _chain_time_nodes(self, stream, t_target):
+    def _chain_time_nodes(self, stream, t_target, shed_capacity=None):
         """Insert intermediate time nodes so no preintegration segment spans
         more IMU samples than its fixed capacity (the reference bounds spans
         the same way, MAXIMUM_PREINTEGRATION_LENGTH, ic_gvins.h:134-136 +
-        ic_gvins.cc:858-862), marginalizing the oldest node when the window
-        fills."""
+        ic_gvins.cc:858-862). ``shed_capacity`` frees node slots when the
+        window fills (by default: marginalize the oldest node at the small
+        tier; ``GvinsModel`` passes its keyframe-aware shed)."""
+        shed = shed_capacity or (lambda: self.est.marginalize(1, wc=self.est.wcfg_small))
         max_dt = (self.cfg.preint_samples - 2) / self.cfg.imudatarate
         t0 = float(self.est.times[self.est.n_nodes - 1])
         while t_target - t0 > max_dt:
             t0 += max_dt
             self.est.add_time_node(t0, stream.series(self.est.times[self.est.n_nodes - 1], t0))
             if self.est.n_nodes >= self.wcfg.N - 1:
-                self.est.marginalize(1, wc=self.est.wcfg_small)
+                shed()
 
     def _add_gnss_node(self, stream, gnss):
         self._chain_time_nodes(stream, gnss["time"])

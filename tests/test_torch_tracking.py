@@ -110,8 +110,8 @@ def test_port_imports_no_jax_or_yaml():
          ("ins", ("parallel_scan", "mechanization", "preintegration")),
          ("factors", ("robust", "basic", "preint_factor", "reprojection", "marginalization")),
          ("solver", ("problem", "lm")),
-         ("models", ("gins",)),
-         ("vision", ("map", "camera", "pyramid", "lk", "features", "ransac", "tracking")),
+         ("models", ("gins", "gvins")),
+         ("vision", ("map", "camera", "pyramid", "lk", "features", "ransac", "tracking", "drawer")),
          ("ops", ("clahe", "lk", "subpix"))) for m in ms]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
