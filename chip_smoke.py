@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU (H100): its visual frontend, its
-GNSS/INS replay and its GNSS-visual-inertial replay.
+GNSS/INS replay (with and without the wheel odometer) and its
+GNSS-visual-inertial replay, from memory and from files.
 
 Run from the repository root, with no arguments:
 
@@ -40,7 +41,11 @@ of JAX. Phases, in order; any failure raises and the script exits nonzero:
    stage synchronized and timed, 10 epochs of it under torch.profiler
    (kernels per epoch, device busy share); then the port on CUDA against
    the port on the CPU on the 24 s world, earth off and on: same state,
-   nodes and node times;
+   nodes and node times; then one odometer run (``odo_replay``): the
+   EARTH_ODO replay of tests/test_gins_e2e.py::test_earth_odo_replay, its
+   configuration written as a gvins.yaml text and read back with the port's
+   load_config, with that test's gates (10-dim mix blocks, node error,
+   the estimated wheel scale) and its wall time;
 7. the GNSS-visual-inertial replay (``GvinsModel``, device="cuda", the
    production widths: 10 keyframes, 24 node slots, 512 landmark and 2048
    reprojection slots, 200 features) on a seeded 30 s drive (phase 6's world,
@@ -53,14 +58,33 @@ of JAX. Phases, in order; any failure raises and the script exits nonzero:
    world of tests/test_gvins_e2e.py: same states, keyframes and node times,
    positions within 1e-3 m (the CPU run is this script as a child process,
    ``--gvins-cpu-twin``, started with the phase on 4 cores of its own).
-   The kernels' ``launches`` are this replay's
-   (``launches_by_path`` keeps phase 4's too).
+8. the long fault world of tests/test_gvins_long_e2e.py (``long_phase``):
+   its 120 s drive at 200 Hz with GNSS dropped in [60, 75) s, 10 Hz frames
+   at 160x120 brightened x1.35 in [45, 46) s and featureless in [85, 86.5)
+   s, extrinsic and td estimation and the histogram gate on; written to
+   files (imu.txt, gnss.txt, frames.txt with 'stamp relpath' lines, 8-bit
+   PNGs, gvins.yaml), read back and checked against the streams (native
+   against numpy parse), each kernel held against its plain version on a
+   normal, a glitch and a featureless frame of it, then replayed through
+   ``scripts/run_gvins_torch.py``'s ``main`` (``--device cuda``, the three
+   counters zeroed just before): that test's five gates against the truth
+   and the evidence that the histogram gate, TRACK_LOST in the blackout and
+   tracking after it, a GNSS-free bridge with reprojection rows, the
+   td/extrinsic updates and the three kernels ran. The JAX package refuses
+   a window slide of more than marg_cap nodes, and the port refuses it
+   alike: on these files it stops after the frame at 40.25 s (on the CPU),
+   every gate whose window lies after the stop is printed NOT MET (ROADMAP
+   R1) and the phase holds the gates of the span that ran.
+
+Each phase prints its seconds. The kernels' ``launches`` are phase 8's
+replay's (``launches_by_path`` keeps phase 4's and phase 7's too).
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. The helpers take the port's modules as
 arguments, so ``tools/ab_compare.py`` can drive another checkout with them.
 """
 
+import collections
 import json
 import os
 import pickle
@@ -314,6 +338,56 @@ def near_border_pair(torch, pyramid, base, sign, n=256):
             torch.tensor(pred, **f32), torch.ones(n, dtype=torch.bool, device=dev))
 
 
+def check_clahe(kclahe, tag, tables):
+    """K3 against its plain version on ``tables``: >= 99.9 % of pixels within
+    1e-3 gray and none off by more than 1e-2. Returns (max error, output)."""
+    out_k = kclahe.clahe_apply(*tables)
+    d = (out_k - kclahe.clahe_apply_plain(*tables)).abs()
+    frac, worst = float((d <= 1e-3).float().mean()), float(d.max())
+    print(f"[kernel] clahe_apply {tag} {tuple(out_k.shape)}: {frac:.6f} of pixels within "
+          f"1e-3 gray, max {worst:.3g}")
+    assert frac >= 0.999 and worst <= 1e-2, f"K3 clahe_apply {tag}"
+    return worst, out_k
+
+
+def check_lk(torch, klk, tag, args, directions, min_joint):
+    """K1 against its plain version: the status flags agree on >= 99 % of the
+    slots, >= ``min_joint`` slots are tracked by both, and their endpoints
+    agree within 1e-3 px in the median. Returns (max endpoint difference,
+    the plain endpoints)."""
+    (fk, ok_k), (fp, ok_p) = (klk.lk_pyr(*args, directions=directions),
+                              klk.lk_pyr_plain(*args, directions=directions))
+    agree = float((ok_k == ok_p).float().mean())
+    both = ok_k & ok_p
+    e = torch.linalg.vector_norm(fk[both] - fp[both], dim=1)
+    med = float(e.median()) if e.numel() else float("nan")
+    print(f"[kernel] lk_pyr {tag}, {directions} direction(s): ok agree {agree:.4f}, "
+          f"jointly ok {int(both.sum())}, median endpoint diff {med:.2e} px")
+    assert agree >= 0.99 and e.numel() >= min_joint and (not e.numel() or med < 1e-3), f"K1 {tag} {directions}"
+    return (float(e.max()) if e.numel() else 0.0), fp
+
+
+def check_subpix(torch, ksubpix, tag, args):
+    """K2 against its plain version: over the valid corners the refined
+    points agree within 1e-3 px in the median and within 0.05 px for >= 99 %,
+    the step counts are equal for >= 99 %, and invalid slots stay put.
+    Returns (max difference, plain output, plain step counts)."""
+    n, valid_s = args[1].shape[0], args[2]
+    iters_k, steps_p = (torch.zeros(n, dtype=torch.int32, device=args[0].device) for _ in range(2))
+    out_k = ksubpix.subpix(*args, iters=iters_k)
+    out_p = ksubpix.subpix_plain(*args, steps=steps_p)
+    e = torch.linalg.vector_norm(out_k - out_p, dim=1)[valid_s]
+    assert e.numel() > 0, f"K2 {tag}: no valid corner"
+    med, within = float(e.median()), float((e <= 0.05).float().mean())
+    same = float((iters_k == steps_p)[valid_s].float().mean())
+    print(f"[kernel] subpix {tag} {tuple(args[1].shape)}: median diff {med:.2e} px, within "
+          f"0.05 px {within:.4f}, max {float(e.max()):.2e}; steps equal to the plain count "
+          f"{same:.4f} ({int(steps_p.sum())} plain steps, longest {int(steps_p.max())})")
+    assert med < 1e-3 and within >= 0.99 and same >= 0.99, f"K2 subpix {tag}"
+    assert torch.equal(out_k[~valid_s], args[1][~valid_s]), f"K2 {tag}: invalid slots moved"
+    return float(e.max()), out_p, steps_p
+
+
 SUBPIX_CASES = ("border", "guard", "interior", "invalid")
 
 
@@ -421,7 +495,7 @@ GINS_CUDA_CPU_TOL = 1e-9         # m: node positions, CUDA against CPU (measured
 
 def gins_world(rate=200.0, bg_true=GINS_BG, ba_true=(0.01, -0.02, 0.03), gnss_noise=0.01,
                gnss_std=0.02, lever=(-0.3, 0.01, 0.35), origin_deg=(30.5, 114.3, 40.0), seed=0,
-               turn_duration=18.0, with_earth=False):
+               with_odo=False, odo_scale_err=0.01, odo_noise=0.02, turn_duration=18.0, with_earth=False):
     """A seeded GNSS/INS drive with ground truth, the world of
     tests/gins_data.py:make_gins_dataset built from the port on the CPU in
     f64: 4 s stationary, 2 s accelerating at 1.3 m/s^2, then a coordinated
@@ -430,7 +504,9 @@ def gins_world(rate=200.0, bg_true=GINS_BG, ba_true=(0.01, -0.02, 0.03), gnss_no
     the truth attitude (fixed point by iteration); truth is the port's
     mechanization of the bias-free increments; the measured increments carry
     the biases and white noise at 0.1 deg/sqrt(hr) and 0.1 m/s/sqrt(hr);
-    GNSS at whole seconds, the antenna through the lever arm plus noise.
+    with the odometer, wheel distance increments (the true body-x velocity a
+    sample, scaled by 1 - ``odo_scale_err``, plus white noise); GNSS at whole
+    seconds, the antenna through the lever arm plus noise.
     Returns (imu_data, gnss_data, truth) numpy dicts, as the generator
     there."""
     import torch
@@ -481,7 +557,11 @@ def gins_world(rate=200.0, bg_true=GINS_BG, ba_true=(0.01, -0.02, 0.03), gnss_no
     arw, vrw = 0.1 * np.pi / 180.0 / 60.0, 0.1 / 60.0
     dtheta_m = dtheta_true + np.asarray(bg_true) * dt + rng.normal(0, arw * np.sqrt(dt), (n, 3))
     dvel_m = (f + np.asarray(ba_true)) * dt + rng.normal(0, vrw * np.sqrt(dt), (n, 3))
-    imu_data = dict(time=t, dt=np.full(n, dt), dtheta=dtheta_m, dvel=dvel_m, odovel=np.zeros(n))
+    odovel = np.zeros(n)
+    if with_odo:   # vehicle frame = body frame (abv = 0, lodo = 0)
+        v_body_x = np.einsum("ij,ij->i", v_true, quat.to_matrix(t64(q_true)).numpy()[:, :, 0])
+        odovel = v_body_x * dt * (1.0 - odo_scale_err) + rng.normal(0, odo_noise * np.sqrt(dt), n)
+    imu_data = dict(time=t, dt=np.full(n, dt), dtheta=dtheta_m, dvel=dvel_m, odovel=odovel)
 
     gt_times = np.arange(1.0, t[-1], 1.0)
     i = np.round(gt_times * rate).astype(int) - 1
@@ -492,6 +572,40 @@ def gins_world(rate=200.0, bg_true=GINS_BG, ba_true=(0.01, -0.02, 0.03), gnss_no
     truth = dict(time=t, p=p_true, q=q_true, v=v_true, origin=origin, lever=lever, gnss_local=gnss_local,
                  iewn=iewn)
     return imu_data, gnss_data, truth
+
+
+# tests/test_gins_e2e.py::test_earth_odo_replay: EARTH_ODO with the wheel
+# odometer, tight forward and loose lateral/vertical (the world has real
+# sideslip the wheel cannot observe)
+ODO_RAW = dict(GINS_RAW, optimize_windows_size=10, isuseodo=True,
+               odometer=dict(std=[0.02, 0.5, 0.5], srw=1000.0, abv=[0.0, 0.0, 0.0], lodo=[0.0, 0.0, 0.0]))
+ODO_SCALE_ERR = 0.01
+
+
+def yaml_text(raw):
+    """A gvins.yaml text of the config dict ``raw`` in the reference's
+    layout: scalars, flow lists, ``imumodel`` as a flow map, ``cam0`` and
+    ``odometer`` as block maps."""
+    def scalar(v):
+        if isinstance(v, bool):
+            return "true" if v else "false"
+        return "~" if v is None else repr(v) if isinstance(v, float) else str(v)
+
+    def flow(v):
+        if isinstance(v, (list, tuple, np.ndarray)):
+            return "[" + ", ".join(scalar(float(x) if isinstance(x, np.floating) else x) for x in v) + "]"
+        return scalar(v)
+
+    lines = ["# gvins.yaml"]
+    for key, v in raw.items():
+        if isinstance(v, dict) and key in ("cam0", "odometer"):
+            lines.append(f"{key}:")
+            lines += [f"  {k}: {flow(x)}" for k, x in v.items()]
+        elif isinstance(v, dict):
+            lines.append(f"{key}: {{" + ", ".join(f"{k}: {flow(x)}" for k, x in v.items()) + "}")
+        else:
+            lines.append(f"{key}: {flow(v)}")
+    return "\n".join(lines) + "\n"
 
 
 def gins_config(parse_config, truth, with_earth=True):
@@ -705,7 +819,44 @@ def gins_phase(torch, card):
               f"same times, max position difference {dp:.3g} m ({secs[DEVICE]:.1f} s and "
               f"{secs['cpu']:.1f} s wall)")
         assert dp < GINS_CUDA_CPU_TOL, f"CUDA and CPU differ by {dp} m"
+    odo_replay(torch, card)
     print(f"[gins] phase 6 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def odo_replay(torch, card):
+    """Phase 6's odometer run: tests/test_gins_e2e.py::test_earth_odo_replay
+    on the card, its configuration written as a gvins.yaml text and read back
+    with the port's load_config; that test's gates."""
+    import tempfile
+
+    from ic_gvins_tpu_torch.engine.config import load_config
+    from ic_gvins_tpu_torch.models import gins as gins_mod
+
+    imu, gnss, truth = gins_world(with_earth=True, with_odo=True, odo_scale_err=ODO_SCALE_ERR, seed=SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "gvins.yaml")
+        with open(path, "w") as f:
+            f.write(yaml_text(dict(ODO_RAW, antlever=list(truth["lever"]))))
+        cfg = load_config(path)
+    assert cfg.isuseodo and cfg.iswithearth and cfg.odometer.std == [0.02, 0.5, 0.5]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = gins_mod.GinsModel(cfg, device=DEVICE)
+    traj = model.run(imu, gnss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _, err = node_errors(traj[2:], truth)
+    k = model.est.n_nodes - 1
+    sodo = float(model.est.mixes[k, 9])
+    sim_s = float(imu["time"][-1] - imu["time"][0])
+    print(f"[odo] EARTH_ODO replay, {sim_s:.0f} s simulated in {wall:.3f} s wall ({sim_s / wall:.2f} sim-s per "
+          f"wall-s; {len(traj)} nodes, state {model.state}) ({card})")
+    print(f"[odo] mix blocks {model.est.mixes.shape[1]} (limit == 10); node error mean {err.mean():.4f} m "
+          f"(limit < 0.08); odometer scale {sodo:.5f} (limits {0.2 * ODO_SCALE_ERR:.4f} .. "
+          f"{3.0 * ODO_SCALE_ERR:.4f}, injected {ODO_SCALE_ERR})")
+    assert model.est.wcfg.with_odo and model.est.mixes.shape[1] == 10
+    assert err.mean() < 0.08, f"odometer replay mean error {err.mean()}"
+    assert 0.2 * ODO_SCALE_ERR < sodo < 3.0 * ODO_SCALE_ERR, f"odometer scale {sodo}"
 
 
 # --------------------------------------------------------------------------
@@ -799,8 +950,8 @@ def gvins_frames(cam_mod, rot_np, camera, truth, pts_w, blob, rate=200.0, dtype=
 class FrameLog:
     """Wraps ``GvinsModel._process_frame`` while installed as a context: per
     processed frame its host reads (``fetch.reads``), whether it ran a
-    keyframe episode, its wall seconds, and the model's state and node count
-    after it; optionally a torch.profiler session over keyframe episodes
+    keyframe episode, its wall seconds, the model's state and node count
+    after it, and the frame's stamp; optionally a torch.profiler session over keyframe episodes
     ``profiled`` = (first, end)."""
 
     def __init__(self, torch, gvins_mod, fetch, profiled=None):
@@ -823,7 +974,8 @@ class FrameLog:
             r0, t0 = fetch.reads, time.perf_counter()
             out = process(model, *args)
             ran = sum(model.tier_counts.values()) - episodes
-            self.rows.append((fetch.reads - r0, ran, time.perf_counter() - t0, model.state, model.est.n_nodes))
+            self.rows.append((fetch.reads - r0, ran, time.perf_counter() - t0, model.state, model.est.n_nodes,
+                              float(args[1])))
             if self.prof is not None and self.prof_wall_ms is None:
                 self.prof_frames_s += self.rows[-1][2]
                 if sum(model.tier_counts.values()) >= self.profiled[1]:
@@ -1029,7 +1181,379 @@ def gvins_replay(torch, card, wrappers):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 8: the long fault world of tests/test_gvins_long_e2e.py, written to
+# files and replayed through scripts/run_gvins_torch.py
+# --------------------------------------------------------------------------
+
+LONG_CAMERA = ([125.0, 125.0, 80.0, 60.0], [-0.05, 0.01, 0.0, 0.0], [160, 120])
+LONG_BLOB = (1.6, 5)             # blob sigma and half-width (px) of that test's renderer
+LONG_OUTAGE = (60.0, 75.0)       # GNSS fixes dropped
+LONG_GLITCH = (45.0, 46.0)       # frames brightened x1.35 (the histogram gate)
+LONG_BLACKOUT = (85.0, 86.5)     # featureless frames (TRACK_LOST and re-initialization)
+# the configuration of tests/test_gvins_long_e2e.py: extrinsic and td
+# estimation and the histogram gate on
+LONG_RAW = dict(initlength=3, imudatarate=200, iswithearth=False,
+                imumodel=dict(arw=0.1, vrw=0.1, gbstd=400.0, abstd=400.0, corrtime=1.0), gnssthreshold=20,
+                optimize_windows_size=8, optimize_num_iterations=20, optimize_estimate_extrinsic=True,
+                optimize_estimate_td=True, track_check_histogram=True, track_min_parallax=20,
+                track_max_interval=0.5, track_max_features=100, reprojection_error_std=1.5, node_slots=20,
+                landmark_slots=256, gnss_slots=20, reproj_slots=1024)
+# frames (previous, checked) whose kernels are held against the plain
+# versions before the replay: a normal pair, a glitch frame, a blackout frame
+LONG_CHECKED = {"normal": (299, 300), "glitch": (449, 450), "featureless": (849, 851)}
+# the last frame the port on the CPU finishes on this world read back from
+# the files before it refuses a window slide of more than marg_cap nodes, as
+# the JAX package refuses such a slide (in memory both packages refuse after
+# 41.55 s; tests/test_torch_long_e2e.py; ROADMAP R1)
+LONG_REFUSED_AFTER = 40.25
+
+
+def long_world(cam_mod, rot_np):
+    """tests/test_gvins_long_e2e.py's world without jax: the 120 s drive of
+    ``gins_world(turn_duration=114.0)`` (earth off, 200 Hz), its GNSS fixes
+    in LONG_OUTAGE dropped, 6000 ground points 9-13 m below from
+    default_rng(7), frames at 10 Hz of the 160x120 camera (FX 125, radtan
+    [-0.05, 0.01, 0, 0]) at the true body pose, flat in LONG_BLACKOUT and
+    brightened x1.35 in LONG_GLITCH. Returns (imu, gnss, truth, frame_times,
+    frame) with frame(k) the (H, W) f64 image of frame k."""
+    imu, gnss, truth = gins_world(turn_duration=114.0, seed=SEED)
+    keep = ~((gnss["time"] >= LONG_OUTAGE[0]) & (gnss["time"] < LONG_OUTAGE[1]))
+    gnss = {k: v[keep] for k, v in gnss.items()}
+    rng = np.random.default_rng(7)
+    pts_w = np.stack([rng.uniform(-80, 140, 6000), rng.uniform(-80, 140, 6000), rng.uniform(9, 13, 6000)], axis=1)
+    camera = cam_mod.PinholeCamera.from_config(*LONG_CAMERA)
+    frame_times = np.arange(0.05, imu["time"][-1] - 0.2, 0.1)
+
+    def frame(k):
+        t = frame_times[k]
+        if LONG_BLACKOUT[0] <= t < LONG_BLACKOUT[1]:
+            return np.full((camera.height, camera.width), 90.0)
+        i = min(int(round(t * 200.0)) - 1, len(truth["p"]) - 1)
+        img = ground_frame(cam_mod, camera, pts_w, rot_np.to_matrix(truth["q"][i]), truth["p"][i], *LONG_BLOB)
+        if LONG_GLITCH[0] <= t < LONG_GLITCH[1]:
+            img = np.clip(img * 1.35, 0, 255)
+        return img
+    return imu, gnss, truth, frame_times, frame
+
+
+def write_world_files(root, imu, gnss, frame_times, frame, raw):
+    """The world in the formats scripts/run_gvins.py documents: imu.txt
+    (increment form, time dtheta dvel [odovel]), gnss.txt (time, lat and lon
+    in degrees to 15 decimals, height, stds), frames.txt ('stamp relpath'
+    lines, the form scripts/convert_kaist.py writes), 8-bit grayscale PNGs
+    (rounded) under images/, and gvins.yaml. Returns the paths."""
+    from PIL import Image
+
+    paths = {k: os.path.join(root, f) for k, f in (("config", "gvins.yaml"), ("imu", "imu.txt"),
+                                                    ("gnss", "gnss.txt"), ("frames", "frames.txt"))}
+    paths["imagedir"] = root
+    cols = [imu["time"][:, None], imu["dtheta"], imu["dvel"]]
+    if np.any(imu["odovel"]):
+        cols.append(imu["odovel"][:, None])
+    np.savetxt(paths["imu"], np.concatenate(cols, axis=1), fmt="%.17g")
+    deg = np.rad2deg(gnss["blh"][:, :2])
+    np.savetxt(paths["gnss"], np.concatenate([gnss["time"][:, None], deg, gnss["blh"][:, 2:], gnss["std"]], axis=1),
+               fmt=["%.3f", "%.15f", "%.15f", "%.9f", "%.6f", "%.6f", "%.6f"])
+    os.makedirs(os.path.join(root, "images"))
+    with open(paths["frames"], "w") as f:
+        for k, t in enumerate(frame_times):
+            rel = os.path.join("images", f"{k:06d}.png")
+            Image.fromarray(np.clip(np.round(frame(k)), 0, 255).astype(np.uint8), "L").save(os.path.join(root, rel))
+            f.write(f"{t:.9f} {rel}\n")
+    with open(paths["config"], "w") as f:
+        f.write(yaml_text(raw))
+    return paths
+
+
+def check_world_files(dataset, paths, imu, gnss, frame_times, frame):
+    """The port's loaders give back the in-memory streams within the print
+    precision; with the native parser in use, its tables equal the numpy
+    path's; the PNGs read back as the rounded frames. Prints what read
+    them."""
+    import PIL
+
+    got = dataset.load_imu(paths["imu"], 200.0)
+    d_imu = {k: float(np.abs(got[k] - imu[k]).max()) for k in ("time", "dt", "dtheta", "dvel")}
+    g = dataset.load_gnss(paths["gnss"])
+    d_gnss = dict(lat_lon_rad=float(np.abs(g["blh"][:, :2] - gnss["blh"][:, :2]).max()),
+                  height_m=float(np.abs(g["blh"][:, 2] - gnss["blh"][:, 2]).max()),
+                  std=float(np.abs(g["std"] - gnss["std"]).max()))
+    print(f"[long] inputs read by the {dataset.parser()} parser: {len(got['time'])} IMU samples, max difference "
+          f"to the stream {d_imu}; {len(g['time'])} GNSS fixes, {d_gnss}")
+    assert len(got["time"]) == len(imu["time"]) and np.array_equal(g["time"], gnss["time"])
+    assert d_imu["time"] == 0.0 and d_imu["dtheta"] == 0.0 and d_imu["dvel"] == 0.0 and d_imu["dt"] < 1e-12
+    assert d_gnss["lat_lon_rad"] < 1e-15 and d_gnss["height_m"] < 1e-9 and d_gnss["std"] == 0.0
+    if dataset.parser() == "native":
+        arr = dataset._numpy_imu(paths["imu"], 200.0, 0)
+        same_imu = all(np.array_equal(got[k], arr[:, sl]) for k, sl in
+                       (("time", 0), ("dt", 1), ("dtheta", slice(2, 5)), ("dvel", slice(5, 8))))
+        raw = np.loadtxt(paths["gnss"])
+        d_rad = float(np.abs(g["blh"][:, :2] - np.deg2rad(raw[:, 1:3])).max())   # deg->rad roundings differ
+        same_gnss = d_rad < 1e-15 and np.array_equal(g["blh"][:, 2], raw[:, 3]) and \
+            np.array_equal(g["std"], raw[:, 4:7])
+        print(f"[long] native parse against the numpy parse: IMU equal {same_imu}; GNSS heights and stds "
+              f"equal, lat/lon within {d_rad:.3g} rad: {same_gnss}")
+        assert same_imu and same_gnss, "the native and numpy parsers differ"
+    times, provider = dataset.load_frame_index(paths["frames"], paths["imagedir"])
+    ks = (0, *(f for _, f in LONG_CHECKED.values()), len(frame_times) - 1)
+    same_png = all(np.array_equal(provider(k), np.clip(np.round(frame(k)), 0, 255)) for k in ks)
+    print(f"[long] frames.txt: {len(times)} 'stamp relpath' lines; PIL {PIL.__version__} read the PNGs, frames "
+          f"{ks} equal to the rounded renders: {same_png}")
+    assert np.abs(times - frame_times).max() < 1e-9 and same_png
+    return provider
+
+
+def long_kernel_checks(torch, modules, provider, cfg, camera):
+    """Each kernel against its plain version on three frames of the long
+    world as the replay reads them (a normal pair, a glitch frame, a
+    blackout frame), at the tracker's statics for 160x120, with phase 3's
+    tolerances."""
+    kclahe, klk, ksubpix, pyramid, feat, trk, vmap_mod = modules
+    tracker = trk.Tracker(camera, vmap_mod.VisualMap(cfg.optimize_windows_size), cfg, device=DEVICE)
+    br, bc, per, dist = tracker._detect_static
+    img = lambda k: torch.tensor(provider(k), dtype=torch.float32, device=DEVICE)  # noqa: E731
+
+    def detect(level0):
+        c, _, v = feat.detect_blockwise(level0, torch.ones_like(level0),
+                                        torch.zeros(br * bc, dtype=torch.int32, device=level0.device),
+                                        block_rows=br, block_cols=bc, per_block=per, min_distance=dist)
+        return c.contiguous(), v.contiguous()
+
+    for tag, (kp, kf) in LONG_CHECKED.items():
+        ip, i_f = img(kp), img(kf)
+        check_clahe(kclahe, f"long {tag} frame {kf}", pyramid.clahe_tables(i_f))
+        pyr_p, pyr_f = pyramid.build_pyramid(pyramid.clahe(ip)), pyramid.build_pyramid(pyramid.clahe(i_f))
+        c, v = detect(pyr_p[0])
+        # ~16 blobs in view at 160x120; the glitch's step in brightness loses most tracks
+        min_joint = {"normal": 5, "glitch": 0, "featureless": 0}[tag]
+        for n in (1, 2):
+            check_lk(torch, klk, f"long {tag} frames {kp}->{kf}", (pyr_p, pyr_f, c, c, v), n, min_joint)
+        cf, vf = detect(pyr_f[0])
+        src = kf
+        if int(vf.sum()) < 8:        # nothing to detect: refine the previous frame's corners on it
+            cf, vf, src = c, v, kp
+        check_subpix(torch, ksubpix, f"long {tag} frame {kf} (corners of frame {src})", (pyr_f[0], cf, vf))
+
+
+def long_phase(torch, card, wrappers):
+    """Phase 8: tests/test_gvins_long_e2e.py's world written to files and
+    replayed through ``scripts/run_gvins_torch.py`` (``main``, in process,
+    ``--device cuda``): the input path checked, the kernels held against
+    their plain versions on three of its frames, then the replay with that
+    test's five gates against the truth and the evidence that its fault
+    paths ran. The port refuses a window slide of more than ``marg_cap``
+    nodes as the JAX package does (on the CPU, after the frame at
+    LONG_REFUSED_AFTER s of these files): where the replay stops so, each
+    gate whose window lies after the stop is printed NOT MET, and the phase
+    holds only the gates of the span that ran. Returns the kernels' launches
+    in the replay."""
+    import importlib.util
+    import tempfile
+
+    from ic_gvins_tpu_torch.core import rotation_np
+    from ic_gvins_tpu_torch.engine.config import load_config
+    from ic_gvins_tpu_torch.engine.host import fetch
+    from ic_gvins_tpu_torch.io import dataset
+    from ic_gvins_tpu_torch.models import gvins as gvins_mod
+    from ic_gvins_tpu_torch.ops import clahe as kclahe
+    from ic_gvins_tpu_torch.ops import lk as klk
+    from ic_gvins_tpu_torch.ops import subpix as ksubpix
+    from ic_gvins_tpu_torch.vision import camera as cam
+    from ic_gvins_tpu_torch.vision import features as feat
+    from ic_gvins_tpu_torch.vision import map as vmap_mod
+    from ic_gvins_tpu_torch.vision import pyramid
+    from ic_gvins_tpu_torch.vision import tracking as trk
+
+    t_phase = t0 = time.perf_counter()
+    imu, gnss, truth, frame_times, frame = long_world(cam, rotation_np)
+    intrinsic, distortion, resolution = LONG_CAMERA
+    raw = dict(LONG_RAW, is_make_outputdir=False, antlever=list(truth["lever"]), cam0=dict(
+        intrinsic=intrinsic, distortion=distortion, resolution=resolution, q_b_c=[0.0, 0.0, 0.0, 1.0],
+        t_b_c=[0.0, 0.0, 0.0], td_b_c=0.0))
+    spec = importlib.util.spec_from_file_location(
+        "run_gvins_torch", os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "run_gvins_torch.py"))
+    runner = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(runner)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_world_files(tmp, imu, gnss, frame_times, frame, raw)
+        print(f"[long] world: {len(imu['time'])} IMU samples, {len(gnss['time'])} GNSS fixes (outage "
+              f"{LONG_OUTAGE}), {len(frame_times)} frames {resolution[0]}x{resolution[1]} (glitch {LONG_GLITCH}, "
+              f"blackout {LONG_BLACKOUT}), written to files in {time.perf_counter() - t0:.2f} s on the CPU")
+        provider = check_world_files(dataset, paths, imu, gnss, frame_times, frame)
+        cfg = load_config(paths["config"])
+        assert cfg.track_check_histogram and cfg.optimize_estimate_td and cfg.optimize_estimate_extrinsic
+        long_kernel_checks(torch, (kclahe, klk, ksubpix, pyramid, feat, trk, vmap_mod), provider, cfg,
+                           cam.PinholeCamera.from_config(*LONG_CAMERA))
+
+        # the replay, with the model, the tracker's states, the parameter
+        # updates and each episode's reprojection rows recorded by light wrappers
+        G = gvins_mod.GvinsModel
+        track, update, optimize, run = trk.Tracker.track, G._update_from_optimizer, G._optimize_visual, G.run
+        models, tracked, visual_rows, adoptions = [], [], [], {"td": 0, "extrinsic": 0}
+
+        def logged_run(self, *args):
+            models.append(self)
+            return run(self, *args)
+
+        def logged_track(self, frame_, image):
+            st = track(self, frame_, image)
+            tracked.append((frame_.stamp - frame_.td, st))
+            return st
+
+        def logged_optimize(self):
+            build, rows = self._build_reproj_table, []
+
+            def counted(slots):
+                table, n = build(slots)
+                rows.append(n)
+                return table, n
+            self._build_reproj_table = counted
+            try:
+                return optimize(self)
+            finally:
+                del self._build_reproj_table
+                visual_rows.append((float(self.est.times[self.est.n_nodes - 1]), sum(rows)))
+
+        def logged_update(self, slots):
+            td0, t0_ = self.td_b_c, self.pose_b_c_t.copy()
+            out = update(self, slots)
+            adoptions["td"] += self.td_b_c != td0
+            adoptions["extrinsic"] += not np.array_equal(self.pose_b_c_t, t0_)
+            return out
+
+        outdir = os.path.join(tmp, "out")
+        argv = ["--config", paths["config"], "--imu", paths["imu"], "--gnss", paths["gnss"], "--frames",
+                paths["frames"], "--imagedir", paths["imagedir"], "--output", outdir, "--device", DEVICE]
+        refused = None
+        trk.Tracker.track = logged_track
+        G._update_from_optimizer, G._optimize_visual, G.run = logged_update, logged_optimize, logged_run
+        try:
+            with FrameLog(torch, gvins_mod, fetch) as log:
+                for w in wrappers.values():
+                    w.launches = 0
+                reads0 = fetch.reads
+                torch.cuda.synchronize()
+                t_run = time.perf_counter()
+                try:
+                    runner.main(argv)
+                except ValueError as e:      # the JAX package's refusal, taken over unchanged
+                    if "exceeds marg_cap" not in str(e):
+                        raise
+                    refused = e
+                torch.cuda.synchronize()
+                t_run = time.perf_counter() - t_run
+                launches = {k: w.launches for k, w in wrappers.items()}
+                reads = fetch.reads - reads0
+        finally:
+            trk.Tracker.track = track
+            G._update_from_optimizer, G._optimize_visual, G.run = update, optimize, run
+        model = models[0]
+        traj = np.loadtxt(os.path.join(outdir, "trajectory.csv"), ndmin=2)
+        stats = np.loadtxt(os.path.join(outdir, "statistics.txt"), ndmin=2)
+        tracking = np.loadtxt(os.path.join(outdir, "tracking.txt"), ndmin=2)
+        ext = np.loadtxt(os.path.join(outdir, "extrinsic.txt"), ndmin=2)
+    nodes = np.asarray(model.trajectory)
+    # the stamp of the last frame the replay finished: where a refusal stops
+    # it, the frame after this one raised
+    stop = log.rows[-1][5] if refused is not None else float(frame_times[-1])
+
+    sim_s = float(min(stop, imu["time"][-1]) - imu["time"][0])
+    ep_rows = [r for r in log.rows if r[1]]
+    episodes = sum(model.tier_counts.values())
+    print(f"[long] replay through run_gvins_torch.main: {sim_s:.2f} s simulated in {t_run:.3f} s wall, "
+          f"{sim_s / t_run:.3f} sim-s per wall-s (the files read by the runner inside it) ({card})")
+    if refused is not None:
+        print(f"[long] the replay stopped after the frame at {stop:.2f} s: {refused} (the port on the CPU "
+              f"stops after the frame at {LONG_REFUSED_AFTER} s; the JAX package refuses such a slide alike: "
+              f"ROADMAP R1)")
+    print(f"[long] {len(log.rows)} frames processed, {episodes} keyframe episodes, solver tiers "
+          f"{model.tier_counts}, marginalization tiers {model.tier_counts_marg}; {reads} host reads; "
+          f"launches in the replay {launches}")
+    for name, vals in (("episode frame ms", [1e3 * r[2] for r in ep_rows]),
+                       ("other frame ms", [1e3 * r[2] for r in log.rows if not r[1]]),
+                       ("pass-1 solve ms", stats[:, 10]), ("pass-2 solve ms", stats[:, 11])):
+        print(f"[long] {name}: {len(vals)} values, median {pct(vals, 50):.3f}, p90 {pct(vals, 90):.3f} ({card})")
+
+    # the fault paths
+    in_win = lambda t, w: w[0] <= t < w[1] + 1e-6  # noqa: E731
+    passed = [t for t, st in tracked if st == trk.TRACK_PASSED and in_win(t, LONG_GLITCH)]
+    lost_all = [round(t, 2) for t, st in tracked if st == trk.TRACK_LOST]
+    lost = [t for t in lost_all if in_win(t, LONG_BLACKOUT)]
+    normal_after = [r[5] for r in log.rows if lost and r[5] > max(lost) and r[3] == "TRACKING_NORMAL"]
+    bridge_eps = [(round(t, 2), n) for t, n in visual_rows if in_win(t, LONG_OUTAGE)]
+    bridge_visual = [e for e in bridge_eps if e[1] > 0]
+    last_tracking = next((round(t, 2) for t, st in reversed(tracked) if st == trk.TRACK_TRACKING), None)
+    print(f"[long] replay tracker states by frame (TRACK_*: count): "
+          f"{dict(sorted(collections.Counter(int(st) for _, st in tracked).items()))}; TRACK_LOST at {lost_all}; "
+          f"last TRACK_TRACKING frame {last_tracking}")
+    print(f"[long] histogram gate (TRACK_PASSED) in {LONG_GLITCH} at {passed}; keyframe episodes in the GNSS "
+          f"outage {LONG_OUTAGE} (newest node s, reprojection rows): {bridge_eps}; adopted updates {adoptions}; "
+          f"final td {model.td_b_c:.5f} s, t_b_c {model.pose_b_c_t} m, "
+          f"R_b_c {rotation_np.matrix_to_euler(model.pose_b_c_R) * 180 / np.pi} deg")
+
+    # tests/test_gvins_long_e2e.py's gates, against the truth
+    def errs(t_lo=0.0, t_hi=1e9, exclude=()):
+        keep = [r for r in nodes if t_lo <= r[0] <= t_hi and not any(lo - 2.0 <= r[0] <= hi + 3.0
+                                                                      for lo, hi in exclude)]
+        return node_errors(np.asarray(keep), truth)[1] if keep else np.zeros(0)
+
+    outside = errs(t_lo=8.0, exclude=(LONG_OUTAGE, LONG_BLACKOUT))
+    bridge = errs(LONG_OUTAGE[0], LONG_OUTAGE[1] + 2.0)
+    tail = errs(t_lo=100.0)
+    post = errs(LONG_BLACKOUT[1] + 3.0, 100.0)
+    top = lambda e, f: float(f(e)) if len(e) else float("nan")  # noqa: E731
+    end = float(frame_times[-1])
+    # (name, value, limit, met, the stamp the replay must pass for the gate to be judged)
+    gates = [("state at the end", model.state, "TRACKING_NORMAL", model.state == "TRACKING_NORMAL", end),
+             ("last node s", float(nodes[-1, 0]), "> 110", nodes[-1, 0] > 110.0, 110.0),
+             ("nodes outside the faults", len(outside), "> 40", len(outside) > 40, 0.0),
+             ("mean error outside the faults m", top(outside, np.mean), "< 0.3", top(outside, np.mean) < 0.3, 0.0),
+             ("bridge nodes", len(bridge), "> 3", len(bridge) > 3, LONG_OUTAGE[1] + 2.0),
+             ("bridge max error m", top(bridge, np.max), "< 3.0", top(bridge, np.max) < 3.0, LONG_OUTAGE[1] + 2.0),
+             ("tail nodes", len(tail), "> 5", len(tail) > 5, end),
+             ("tail mean error m", top(tail, np.mean), "< 0.25", top(tail, np.mean) < 0.25, end),
+             ("post-blackout nodes", len(post), "> 3", len(post) > 3, 100.0),
+             ("post-blackout mean error m", top(post, np.mean), "< 0.3", top(post, np.mean) < 0.3, 100.0),
+             ("statistics.txt", stats.shape, "15 columns, > 30 rows", stats.shape[1] == 15 and len(stats) > 30,
+              0.0),
+             ("tracking.txt columns", tracking.shape[1], "== 7", tracking.shape[1] == 7, 0.0),
+             ("extrinsic.txt rows", len(ext), ">= 1", len(ext) >= 1, 0.0),
+             ("|t_b_c| m", float(np.linalg.norm(model.pose_b_c_t)), "< 1", np.linalg.norm(model.pose_b_c_t) < 1.0,
+              0.0),
+             ("|td| s", abs(model.td_b_c), "<= 0.081", abs(model.td_b_c) <= 0.081, 0.0),
+             ("trajectory.csv columns", traj.shape[1], "== 8", traj.shape[1] == 8, 0.0),
+             # the evidence that the fault paths ran
+             (f"histogram gate frames in {LONG_GLITCH}", passed, ">= 1", len(passed) >= 1, LONG_GLITCH[1]),
+             (f"TRACK_LOST frames in {LONG_BLACKOUT}", lost, ">= 1", len(lost) >= 1, LONG_BLACKOUT[1]),
+             ("TRACKING_NORMAL after them, from s", normal_after[0] if normal_after else None, "a frame",
+              bool(normal_after), LONG_BLACKOUT[1]),
+             (f"keyframe episodes with reprojection rows in the GNSS outage {LONG_OUTAGE}", len(bridge_visual),
+              ">= 1", len(bridge_visual) >= 1, LONG_OUTAGE[1]),
+             ("adopted td / extrinsic updates", adoptions, ">= 1 together", sum(adoptions.values()) >= 1, 0.0),
+             ("kernel launches in the replay", launches, "each >= 1", all(n > 0 for n in launches.values()), 0.0)]
+    failed, not_reached = [], []
+    for name, value, limit, ok, needs in gates:
+        if ok:
+            verdict = "ok"
+        elif refused is not None and stop < needs:
+            verdict = f"NOT MET (the replay stopped at {stop:.2f} s, before {needs:.1f} s)"
+            not_reached.append(name)
+        else:
+            verdict = "FAILED"
+            failed.append(name)
+        print(f"[long] gate {name}: {value} (limit {limit}) {verdict}")
+    if not_reached:
+        print(f"[long] NOT MET, the failure left standing (the port refuses a slide of more than marg_cap nodes "
+              f"as the JAX package does; ROADMAP R1): {not_reached}")
+    print(f"[long] phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    assert not failed, f"phase 8 gates failed: {failed}"
+    return launches
+
+
 def main():
+    t_start = time.perf_counter()
     import torch
 
     # ---- phase 1: the card ------------------------------------------------
@@ -1052,9 +1576,10 @@ def main():
 
     dev = torch.device(DEVICE)
     card = the_card(torch)
+    phase_s = {1: time.perf_counter() - t_start}
 
     # ---- phase 2: build ------------------------------------------------
-    t0 = time.perf_counter()
+    t0 = t_mark = time.perf_counter()
     _build.library()
     built = _build.build_seconds
     print(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
@@ -1063,7 +1588,10 @@ def main():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}")
 
+    phase_s[2] = time.perf_counter() - t_mark
+
     # ---- phase 3: kernels against their plain versions ---------------------
+    t_mark = time.perf_counter()
     camera, pts_w, poses, images = slice_world(cam)
     img0 = torch.tensor(images[0], dtype=torch.float32, device=dev)
     img1 = torch.tensor(images[1], dtype=torch.float32, device=dev)
@@ -1083,18 +1611,9 @@ def main():
 
     # K3 CLAHE apply, on the frame's own tables; then at an odd width (frame 0
     # cut to W - 1 columns, its own tables), which takes the one-column path
-    def check_clahe(tag, tables):
-        out_k = kclahe.clahe_apply(*tables)
-        d = (out_k - kclahe.clahe_apply_plain(*tables)).abs()
-        frac, worst = float((d <= 1e-3).float().mean()), float(d.max())
-        print(f"[kernel] clahe_apply {tag} {tuple(out_k.shape)}: {frac:.6f} of pixels within "
-              f"1e-3 gray, max {worst:.3g}")
-        assert frac >= 0.999 and worst <= 1e-2, f"K3 clahe_apply {tag}"
-        return worst, out_k
-
     tables = pyramid.clahe_tables(img0)
-    err, out_k = check_clahe("frame 0", tables)
-    err_odd, _ = check_clahe("odd width", pyramid.clahe_tables(img0[:, : W - 1].contiguous()))
+    err, out_k = check_clahe(kclahe, "frame 0", tables)
+    err_odd, _ = check_clahe(kclahe, "odd width", pyramid.clahe_tables(img0[:, : W - 1].contiguous()))
     v_img, lut = tables[0], tables[1]
     # per pixel: 4 weight products, 4 weighted taps, 3 sums (the blend)
     record("clahe_apply", "ic_gvins_tpu_torch/csrc/clahe_apply.cu",
@@ -1107,23 +1626,11 @@ def main():
     assert pts.shape == (256, 2) and int(valid.sum()) > 150, int(valid.sum())
     lk_args = (pyr0, pyr1, pts, pts, valid)
 
-    def check_lk(tag, args, directions, min_joint):
-        (fk, ok_k), (fp, ok_p) = (klk.lk_pyr(*args, directions=directions),
-                                  klk.lk_pyr_plain(*args, directions=directions))
-        agree = float((ok_k == ok_p).float().mean())
-        both = ok_k & ok_p
-        e = torch.linalg.vector_norm(fk[both] - fp[both], dim=1)
-        med = float(e.median()) if e.numel() else float("nan")
-        print(f"[kernel] lk_pyr {tag}, {directions} direction(s): ok agree {agree:.4f}, "
-              f"jointly ok {int(both.sum())}, median endpoint diff {med:.2e} px")
-        assert agree >= 0.99 and e.numel() >= min_joint and med < 1e-3, f"K1 {tag} {directions}"
-        return (float(e.max()) if e.numel() else 0.0), fp
-
-    errs = [check_lk("frame 0->1", lk_args, n, 50)[0] for n in (1, 2)]
+    errs = [check_lk(torch, klk, "frame 0->1", lk_args, n, 50)[0] for n in (1, 2)]
     for sign in (1.0, -1.0):
         args = near_border_pair(torch, pyramid, pyr0[0], sign)
         for n, min_joint in ((1, 20), (2, 8)):
-            err, fp = check_lk(f"near-border {sign:+.0f}", args, n, min_joint)
+            err, fp = check_lk(torch, klk, f"near-border {sign:+.0f}", args, n, min_joint)
             errs.append(err)
         outside = ((fp[:, 0] < 0) | (fp[:, 0] > W - 1) | (fp[:, 1] < 0) | (fp[:, 1] > H - 1))
         print(f"[kernel] lk_pyr near-border {sign:+.0f}: {int(outside.sum())} slots tracked past "
@@ -1146,29 +1653,14 @@ def main():
 
     # K2 subpix: the slice's detection, then the border/guard set; steps
     # compared with the plain version's count
-    def check_subpix(tag, args):
-        n, valid_s = args[1].shape[0], args[2]
-        iters_k, steps_p = (torch.zeros(n, dtype=torch.int32, device=dev) for _ in range(2))
-        out_k = ksubpix.subpix(*args, iters=iters_k)
-        out_p = ksubpix.subpix_plain(*args, steps=steps_p)
-        e = torch.linalg.vector_norm(out_k - out_p, dim=1)[valid_s]
-        med, within = float(e.median()), float((e <= 0.05).float().mean())
-        same = float((iters_k == steps_p)[valid_s].float().mean())
-        print(f"[kernel] subpix {tag} {tuple(args[1].shape)}: median diff {med:.2e} px, within "
-              f"0.05 px {within:.4f}, max {float(e.max()):.2e}; steps equal to the plain count "
-              f"{same:.4f} ({int(steps_p.sum())} plain steps, longest {int(steps_p.max())})")
-        assert med < 1e-3 and within >= 0.99 and same >= 0.99, f"K2 subpix {tag}"
-        assert torch.equal(out_k[~valid_s], args[1][~valid_s]), f"K2 {tag}: invalid slots moved"
-        return float(e.max()), out_p, steps_p
-
     sp_args = subpix_inputs(torch, feat, pyr0[0])
     _, c, v = sp_args
     assert c.shape == (210, 2) and int(v.sum()) > 150
-    sp_err, out_p, sp_steps = check_subpix("slice detection", sp_args)
+    sp_err, out_p, sp_steps = check_subpix(torch, ksubpix, "slice detection", sp_args)
     e_img, e_c, e_v, e_kind = subpix_edge_set(H, W, SEED + 3)
     e_args = (torch.tensor(e_img, device=dev), torch.tensor(e_c, device=dev),
               torch.tensor(e_v, device=dev))
-    e_err, e_out, e_steps = check_subpix("border/guard set", e_args)
+    e_err, e_out, e_steps = check_subpix(torch, ksubpix, "border/guard set", e_args)
     clipped, rejected = subpix_paths(torch, e_args[1], e_args[2], e_out, e_steps, W, H)
     for kind in SUBPIX_CASES:
         m = torch.tensor(e_kind == kind, device=dev)
@@ -1194,7 +1686,10 @@ def main():
     assert torch.equal(c.cpu(), cc) and torch.equal(v.cpu(), vc), "detect_blockwise CUDA != CPU"
     print("[detect] corner tables on the card equal the CPU's on the same frame")
 
+    phase_s[3] = time.perf_counter() - t_mark
+
     # ---- phase 4: the slice at full width ----------------------------------
+    t_mark = time.perf_counter()
     cfg = parse_config(CFG)
     vmap = vmap_mod.VisualMap(cfg.optimize_windows_size)
     tracker = trk.Tracker(camera, vmap, cfg, device=DEVICE)
@@ -1248,7 +1743,10 @@ def main():
               f"(synchronized on both sides) ({card})")
     print(f"[stages] frame median in that pass {np.median(timed_ms):.2f} ms")
 
+    phase_s[4] = time.perf_counter() - t_mark
+
     # ---- phase 5: the CPU plain path agrees with the CUDA run --------------
+    t_mark = time.perf_counter()
     small = cam.PinholeCamera.from_config([250.0, 250.0, 160.0, 120.0], [-0.05, 0.01, 0.0, 0.0],
                                           [320, 240])
     _, s_poses, s_images = sequence(cam, small, 14, 240, 320, SEED + 1, 120,
@@ -1263,14 +1761,31 @@ def main():
         assert rg[:2] == rc[:2] and abs(rg[2] - rc[2]) <= 2 and abs(rg[3] - rc[3]) <= 2, (rg, rc)
     print(f"[small] 320x240 x14: CUDA and CPU states {[r[0] for r in out[DEVICE]]} agree")
 
-    # ---- phase 6: the GNSS/INS replay -------------------------------------
+    phase_s[5] = time.perf_counter() - t_mark
+    print(f"[phases] phases 1-5 took {phase_s[1]:.1f}, {phase_s[2]:.1f}, {phase_s[3]:.1f}, {phase_s[4]:.1f}, "
+          f"{phase_s[5]:.1f} s")
+
+    # ---- phase 6: the GNSS/INS replay, and its odometer run -----------------
+    t_mark = time.perf_counter()
     gins_phase(torch, card)
+    phase_s[6] = time.perf_counter() - t_mark
 
     # ---- phase 7: the GNSS-visual-inertial replay --------------------------
+    t_mark = time.perf_counter()
     replay_launches = gvins_phase(torch, card, wrappers)
-    for k, n in replay_launches.items():
-        records[k]["launches_by_path"] = {"frontend_slice": records[k]["launches"], "gvins_replay": int(n)}
-        records[k]["launches"] = int(n)
+    phase_s[7] = time.perf_counter() - t_mark
+
+    # ---- phase 8: the long fault world from files, through the runner ------
+    t_mark = time.perf_counter()
+    long_launches = long_phase(torch, card, wrappers)
+    phase_s[8] = time.perf_counter() - t_mark
+    for k in records:
+        records[k]["launches_by_path"] = {"frontend_slice": records[k]["launches"],
+                                          "gvins_replay": int(replay_launches[k]),
+                                          "long_fault_replay": int(long_launches[k])}
+        records[k]["launches"] = int(long_launches[k])
+    print(f"[phases] seconds by phase {json.dumps({str(k): round(v, 1) for k, v in sorted(phase_s.items())})}, "
+          f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [records[k] for k in ("clahe_apply", "lk_pyr", "subpix")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

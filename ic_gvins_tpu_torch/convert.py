@@ -16,6 +16,7 @@ import torch
 
 from .core.types import IntegrationParams, NavState
 from .ins.preintegration import PreintSummary
+from .ins.preintegration_odo import PreintOdoSummary
 from .solver.problem import (
     FactorTables,
     GnssTable,
@@ -30,6 +31,15 @@ from .vision.camera import PinholeCamera
 # fields that hold a nested NamedTuple, by name
 _NESTED = {"gnss": GnssTable, "preint": PreintTable, "reproj": ReprojTable, "prior": PriorTable,
            "marg": MargPrior, "summ": PreintSummary, "x0": WindowParams}
+
+
+def _has(tree, name):
+    return name in tree if isinstance(tree, dict) else hasattr(tree, name)
+
+
+def _summary_cls(tree):
+    """PreintOdoSummary for a summary with the odometer fields."""
+    return PreintOdoSummary if _has(tree, "ds") else PreintSummary
 
 
 def camera_from_vec(vec10, width, height):
@@ -53,7 +63,9 @@ def _tree(cls, tree, device):
     out = {}
     for name in cls._fields:
         v = tree[name] if isinstance(tree, dict) else getattr(tree, name)
-        if name in _NESTED:
+        if name == "summ":
+            out[name] = _tree(_summary_cls(v), v, device)
+        elif name in _NESTED:
             out[name] = _tree(_NESTED[name], v, device)
         else:
             a = np.asarray(v)
@@ -80,7 +92,9 @@ def factor_tables(tree, device="cuda"):
 
 
 def preint_summary(tree, device="cuda"):
-    return _tree(PreintSummary, tree, device)
+    """A PreintSummary, or a PreintOdoSummary (the ``PreintOdoSummary``
+    fields ds, sodo0, ds_dbg, ds_dsodo present)."""
+    return _tree(_summary_cls(tree), tree, device)
 
 
 def marg_prior(tree, device="cuda"):

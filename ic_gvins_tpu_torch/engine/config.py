@@ -5,14 +5,15 @@ Parity: the reference parses the same file in three places (fusion_ros.cc:
 time (deg/sqrt(hr) -> rad/sqrt(s), deg/hr -> rad/s, mGal -> m/s^2, hr -> s).
 This module is the single parse point; every consumer reads the dataclass.
 
-A carried-over copy of ``ic_gvins_tpu/engine/config.py``: the GPU machine has
-neither jax (which any ``ic_gvins_tpu`` import pulls in) nor pyyaml, so
-``yaml`` is imported only inside ``load_config`` and ``parse_config(dict)``
-works without it.
+A carried-over copy of ``ic_gvins_tpu/engine/config.py`` (any
+``ic_gvins_tpu`` import pulls in jax). ``load_config`` reads the file with
+this module's own parser of the YAML subset the reference's ``gvins.yaml``
+uses, so no machine needs pyyaml; ``parse_config(dict)`` is unchanged.
 """
 
 import dataclasses
 import math
+import re
 from typing import List, Optional
 
 D2R = math.pi / 180.0
@@ -90,10 +91,8 @@ class GvinsConfig:
 
 
 def load_config(path) -> GvinsConfig:
-    import yaml
-
     with open(path, "r") as f:
-        raw = yaml.safe_load(f)
+        raw = parse_yaml(f.read(), name=str(path))
     return parse_config(raw)
 
 
@@ -145,3 +144,162 @@ def parse_config(raw: dict) -> GvinsConfig:
             td_b_c=float(c.get("td_b_c", 0.0)),
         )
     return cfg
+
+
+# ---------------------------------------------------------------------------
+# the YAML subset of gvins.yaml (SURVEY.md 5.6): top-level keys with scalars,
+# flow lists and flow maps, one level of block maps, comments
+# ---------------------------------------------------------------------------
+
+_KEY = re.compile(r"([A-Za-z_][A-Za-z0-9_]*)\s*:(?:\s+|$)")
+_INT = re.compile(r"[-+]?(?:0|[1-9][0-9]*)$")
+_FLOAT = re.compile(r"[-+]?(?:[0-9]+\.[0-9]*|\.[0-9]+|[0-9]+)(?:[eE][-+]?[0-9]+)?$")
+_SPECIAL = {"true": True, "True": True, "TRUE": True, "false": False, "False": False, "FALSE": False,
+            "yes": True, "Yes": True, "YES": True, "no": False, "No": False, "NO": False,
+            "on": True, "On": True, "ON": True, "off": False, "Off": False, "OFF": False,
+            "~": None, "null": None, "Null": None, "NULL": None,
+            ".inf": math.inf, "+.inf": math.inf, "-.inf": -math.inf, ".nan": math.nan}
+
+
+class YamlSubsetError(ValueError):
+    """A gvins.yaml line outside the subset this parser reads."""
+
+
+def _strip_comment(text):
+    """``text`` up to a '#' that starts a comment (at the start or after
+    whitespace, outside quotes), right-stripped."""
+    quote = None
+    for i, c in enumerate(text):
+        if quote:
+            if c == quote:
+                quote = None
+        elif c in "\"'":
+            quote = c
+        elif c == "#" and (i == 0 or text[i - 1] in " \t"):
+            return text[:i].rstrip()
+    return text.rstrip()
+
+
+def _scalar(tok, where):
+    """One plain or quoted scalar. Booleans and nulls as YAML 1.1 (pyyaml);
+    numbers as yaml-cpp reads them, so ``1e-5`` is a float (pyyaml's YAML
+    1.1 resolver would keep it a string)."""
+    if not tok:
+        return None
+    if tok[0] in "\"'":
+        q = tok[0]
+        if len(tok) < 2 or tok[-1] != q:
+            raise YamlSubsetError(f"{where}: unterminated quoted string {tok!r}")
+        body = tok[1:-1]
+        if q == "'":
+            if "'" in body.replace("''", ""):
+                raise YamlSubsetError(f"{where}: stray quote in {tok!r}")
+            return body.replace("''", "'")
+        if "\\" in body or '"' in body:
+            raise YamlSubsetError(f"{where}: escapes in double-quoted strings are not supported: {tok!r}")
+        return body
+    if tok in _SPECIAL:
+        return _SPECIAL[tok]
+    if re.match(r"[-+]?0[0-9]", tok):   # YAML 1.1 octal: read differently by yaml-cpp and pyyaml
+        raise YamlSubsetError(f"{where}: number with a leading zero {tok!r}")
+    if _INT.match(tok):
+        return int(tok)
+    if _FLOAT.match(tok):
+        return float(tok)
+    if tok[0] in "[]{},&*!|>%@`" or tok.startswith("- ") or ": " in tok or tok.endswith(":"):
+        raise YamlSubsetError(f"{where}: unsupported value {tok!r}")
+    return tok
+
+
+def _split_flow(body, where):
+    """Split the inside of a flow collection at top-level commas."""
+    parts, cur, quote = [], "", None
+    for c in body:
+        if quote:
+            quote = None if c == quote else quote
+        elif c in "\"'":
+            quote = c
+        elif c in "[]{}":
+            raise YamlSubsetError(f"{where}: nested flow collections are not supported")
+        elif c == ",":
+            parts.append(cur.strip())
+            cur = ""
+            continue
+        cur += c
+    parts.append(cur.strip())
+    if parts == [""]:
+        return []
+    if "" in parts:
+        raise YamlSubsetError(f"{where}: empty entry in a flow collection")
+    return parts
+
+
+def _value(text, where):
+    """A flow list, a flow map or a scalar."""
+    if text.startswith("["):
+        if not text.endswith("]"):
+            raise YamlSubsetError(f"{where}: unterminated flow list {text!r}")
+        return [_scalar(p, where) for p in _split_flow(text[1:-1], where)]
+    if text.startswith("{"):
+        if not text.endswith("}"):
+            raise YamlSubsetError(f"{where}: unterminated flow map {text!r}")
+        out = {}
+        for p in _split_flow(text[1:-1], where):
+            m = _KEY.match(p + " ")
+            if not m:
+                raise YamlSubsetError(f"{where}: flow map entry {p!r} is not 'key: value'")
+            out[m.group(1)] = _scalar(p[m.end():].strip(), where)
+        return out
+    return _scalar(text, where)
+
+
+def parse_yaml(text, name="gvins.yaml"):
+    """The mapping a gvins.yaml text holds, read without pyyaml. Reads
+    top-level ``key: value`` lines whose values are scalars (ints, floats,
+    booleans, nulls, plain or quoted strings), flow lists and flow maps, and
+    one level of indented block maps under a key with no value (``cam0:``);
+    a flow collection may span lines until its bracket closes. Comments,
+    blank lines, a leading ``---`` and CRLF line ends are accepted. Anything
+    else raises ``YamlSubsetError`` with the line number."""
+    lines = text.replace("\r\n", "\n").replace("\r", "\n").split("\n")
+    out = {}
+    open_key, block_indent = None, None   # a top-level key with no value, its block's indent
+    i = 0
+    while i < len(lines):
+        lineno = i + 1
+        where = f"{name}:{lineno}"
+        body = _strip_comment(lines[i])
+        i += 1
+        if not body.strip() or (lineno == 1 and body.strip() == "---"):
+            continue
+        indent = len(body) - len(body.lstrip())
+        if "\t" in body[:indent]:
+            raise YamlSubsetError(f"{where}: tab in indentation")
+        body = body.strip()
+        while body.count("[") > body.count("]") or body.count("{") > body.count("}"):
+            if i >= len(lines):
+                raise YamlSubsetError(f"{where}: unterminated flow collection")
+            body += " " + _strip_comment(lines[i]).strip()
+            i += 1
+        m = _KEY.match(body)
+        if not m:
+            raise YamlSubsetError(f"{where}: expected 'key: value', got {body!r}")
+        key, rest = m.group(1), body[m.end():].strip()
+        if indent == 0:
+            target, open_key = out, None
+        elif open_key is not None and block_indent in (None, indent):
+            block_indent = indent
+            if out[open_key] is None:
+                out[open_key] = {}
+            target = out[open_key]
+        else:
+            raise YamlSubsetError(f"{where}: unexpected indentation (one level of block maps)")
+        if key in target:
+            raise YamlSubsetError(f"{where}: duplicate key {key!r}")
+        if rest == "":
+            if indent:
+                raise YamlSubsetError(f"{where}: nested block maps are not supported")
+            out[key], open_key, block_indent = None, key, None
+            continue
+        target[key] = _value(rest, where)
+    return out

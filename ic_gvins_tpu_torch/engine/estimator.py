@@ -20,6 +20,7 @@ import torch
 from ..core.types import ImuBatch, NavState
 from ..factors import marginalization as marg
 from ..ins import preintegration as pre
+from ..ins import preintegration_odo as pre_odo
 from ..solver import lm
 from ..solver.problem import (
     FactorTables,
@@ -98,9 +99,6 @@ class SlidingWindowEstimator:
 
     def __init__(self, wcfg: WindowConfig, int_params, *, preint_samples=512,
                  antlever=np.zeros(3), origin=None, device="cuda"):
-        if wcfg.with_odo:
-            raise NotImplementedError(
-                "the wheel-odometer estimator is not ported yet: ROADMAP.md Queue 1, item 14")
         self.wcfg = wcfg
         self.device = torch.device(device)
         self.int_params = type(int_params)(*[a.to(self.device) for a in int_params])
@@ -167,14 +165,18 @@ class SlidingWindowEstimator:
         self.n_nodes = 1
         self.times[0] = time
         self.poses[0] = np.concatenate([np.asarray(state.p), np.asarray(state.q)])
-        self.mixes[0] = np.concatenate([np.asarray(state.v), np.asarray(state.bg), np.asarray(state.ba)])
+        parts = [np.asarray(state.v), np.asarray(state.bg), np.asarray(state.ba)]
+        if self.wcfg.with_odo:
+            parts.append(np.asarray(state.sodo, np.float64).reshape(1))
+        self.mixes[0] = np.concatenate(parts)
 
     def node_state(self, k) -> NavState:
         """Node k as a NavState of numpy copies of the host mirror."""
         pose, mix = self.poses[k], self.mixes[k]
+        sodo = np.float64(mix[9]) if self.wcfg.with_odo else np.float64(0.0)
         return NavState(time=np.float64(self.times[k]), p=pose[:3].copy(), q=pose[3:7].copy(),
                         v=mix[:3].copy(), bg=mix[3:6].copy(), ba=mix[6:9].copy(),
-                        sodo=np.float64(0.0), sg=np.zeros(3), sa=np.zeros(3))
+                        sodo=sodo, sg=np.zeros(3), sa=np.zeros(3))
 
     def latest_state(self) -> NavState:
         return self.node_state(self.n_nodes - 1)
@@ -197,7 +199,8 @@ class SlidingWindowEstimator:
     def _preintegrate(self, ks):
         """Preintegrate the stored segments of interval slots ``ks`` from their
         start nodes in one batched device call; write the summaries into the
-        host mirror. Returns the summaries (numpy)."""
+        host mirror (the odometer variant with ``with_odo``). Returns the
+        summaries (numpy)."""
         ks = list(ks)
         segs = [np.stack([self.seg_store[i][k] for k in ks]) for i in range(len(ImuBatch._fields))]
         sts = [self.node_state(k) for k in ks]
@@ -206,9 +209,13 @@ class SlidingWindowEstimator:
         dev = upload(segs + st_arrays + [iewn], self.device)
         imu = ImuBatch(*dev[:5])
         st0 = NavState(*dev[5:14])
-        summ = pre.preintegrate_batch(self.int_params, imu, st0, with_earth=self.wcfg.with_earth,
-                                      iewn_batch=dev[14])
-        summ = pre.PreintSummary(*fetch(*summ))
+        if self.wcfg.with_odo:
+            summ = pre_odo.preintegrate_odo(self.int_params, imu, st0, with_earth=self.wcfg.with_earth,
+                                            iewn=dev[14])
+        else:
+            summ = pre.preintegrate_batch(self.int_params, imu, st0, with_earth=self.wcfg.with_earth,
+                                          iewn_batch=dev[14])
+        summ = type(summ)(*fetch(*summ))
         for j, k in enumerate(ks):
             _np_set(self.preint_table.summ, k, [a[j] for a in summ])
         return summ

@@ -48,6 +48,19 @@ def imu_error_jacobian(dtype=torch.float64, device=None):
     return J
 
 
+def imu_error_residual_odo(mix):
+    """7-dim odometer variant: biases + sodo/ODO_SCALE_STD
+    (imu_error_factor.h:67-83); mix is the 10-dim [v, bg, ba, sodo] block."""
+    return torch.cat([imu_error_residual(mix), mix[..., 9:10] / ODO_SCALE_STD], dim=-1)
+
+
+def imu_error_jacobian_odo(dtype=torch.float64, device=None):
+    J = torch.zeros((7, 10), dtype=dtype, device=device)
+    J[:6, :9] = imu_error_jacobian(dtype, device)
+    J[6, 9] = 1.0 / ODO_SCALE_STD
+    return J
+
+
 def pose_prior_residual(pose, pose_prior, std6):
     """6-dim pose prior: translation difference + quaternion-error attitude
     (imu_pose_prior_factor.h:42-55)."""

@@ -182,29 +182,39 @@ def preintegrate_seq(params: IntegrationParams, imu: ImuBatch, state0: NavState,
     return _summary(dt_tot, dp, dv, dq, bg0, ba0, jac, cov, gravity, iewn, sum_dtpn, ap, aq, av, end_time)
 
 
-def preintegrate(params: IntegrationParams, imu: ImuBatch, state0: NavState, *,
-                 with_earth: bool, iewn=None):
-    """Preintegrate a zero-padded IMU series (..., S) from absolute state0.
+class _Chains(NamedTuple):
+    """Per-sample chains of one zero-padded series (..., S): the samples
+    1..S-1 along the scan axis ``ax``."""
 
-    imu[..., 0] is the anchor sample (NOT integrated: it carries the
-    dual-sample history, imu_buffer_[0] in the reference); samples 1..S-1
-    with dt > 0 are integrated. Biases are frozen at state0.bg/ba. Leading
-    dims of (imu, state0, iewn) are batch dims.
+    ax: int
+    dt: torch.Tensor         # (..., S-1)
+    dth: torch.Tensor        # (..., S-1, 3) bias-compensated increments
+    dvl: torch.Tensor
+    dt_new: torch.Tensor     # (..., S-1) elapsed time after each sample
+    dq_all: torch.Tensor     # (..., S-1, 4) delta attitude after each sample
+    rot_prev: torch.Tensor   # (..., S-1, 4) the rotation of each sample's delta increments
+    cbb: torch.Tensor        # (..., S-1, 3, 3) signed rotation of the error propagation
+    sign_gyro: float
+    dvel_d: torch.Tensor     # (..., S-1, 3) delta-velocity increments
+    ap_all: torch.Tensor     # absolute position, attitude, velocity after each sample
+    aq_all: torch.Tensor
+    av_all: torch.Tensor
+    gravity: torch.Tensor    # (..., 3)
+    iewn: torch.Tensor       # (..., 3)
+    sum_dtpn: torch.Tensor   # (..., 3)
+    end_time: torch.Tensor   # (...)
 
-    The reference's per-sample loop (preintegration_base.cc:39-70) becomes
+
+def _chains(params: IntegrationParams, imu: ImuBatch, state0: NavState, with_earth, iewn):
+    """The reference's per-sample loop (preintegration_base.cc:39-70) as
     quaternion prefix products for the delta/absolute attitudes, cumsums for
-    the delta integrals, an affine prefix for the Coriolis velocity, and a
-    tree reduction of the (Phi, Q) pairs for the covariance and bias
-    jacobians. Matches :func:`preintegrate_seq` to f64 reassociation."""
-    if imu.dt.shape[-1] <= 1:
-        return preintegrate_seq(params, imu, state0, with_earth=with_earth, iewn=iewn)
+    the delta integrals and an affine prefix for the Coriolis velocity."""
     f = dict(dtype=imu.dt.dtype, device=imu.dt.device)
     ax = imu.dt.dim() - 1
     batch = imu.dt.shape[:-1]
     bg0, ba0, q0 = state0.bg, state0.ba, state0.q
     gravity = (torch.tensor([0.0, 0.0, 1.0], **f) * params.gravity).expand(batch + (3,))
     iewn = torch.zeros(batch + (3,), **f) if iewn is None else iewn
-    noise = torch.diag(_noise_diag(params))
     g1 = gravity.unsqueeze(ax)
     iw1 = iewn.unsqueeze(ax)
     q01 = q0.unsqueeze(ax)
@@ -240,9 +250,8 @@ def preintegrate(params: IntegrationParams, imu: ImuBatch, state0: NavState, *,
         sum_dtpn = torch.sum(dt3 * ap_all, dim=ax)
 
         # delta integrals through the mid-interval earth rotation
-        q_mid = quat.mul(quat.mul(quat.conj(q01), quat.from_rotvec(-(dt_new - 0.5 * dt)[..., None] * iw1)),
-                         quat.mul(q01, dq_prev))
-        dvel_d = quat.rotate(q_mid, dvfb)
+        rot_prev = quat.mul(quat.mul(quat.conj(q01), quat.from_rotvec(-(dt_new - 0.5 * dt)[..., None] * iw1)),
+                            quat.mul(q01, dq_prev))
         q_full = quat.mul(quat.mul(quat.conj(q01), quat.from_rotvec(-dt_new[..., None] * iw1)),
                           quat.mul(q01, dq_all))
         cbb, sign_gyro = -quat.to_matrix(q_full), -1.0
@@ -253,19 +262,46 @@ def preintegrate(params: IntegrationParams, imu: ImuBatch, state0: NavState, *,
         av_prev = pscan.shift_prev(av_all, state0.v, ax)
         ap_all = state0.p.unsqueeze(ax) + torch.cumsum(0.5 * dt3 * (av_prev + av_all), dim=ax)
         sum_dtpn = torch.zeros(batch + (3,), **f)
-        dvel_d = quat.rotate(dq_prev, dvfb)
+        rot_prev = dq_prev
         cbb, sign_gyro = -quat.to_matrix(dq_all), 1.0
 
-    dv_all = torch.cumsum(dvel_d, dim=ax)
-    dv_prev = pscan.shift_prev(dv_all, torch.zeros(batch + (3,), **f), ax)
-    dp_all = torch.cumsum(0.5 * dt3 * (dv_prev + dv_all), dim=ax)
-
-    phi = _phi_batch(dt, dth, dvl, cbb, params.corr_time)
-    jac, cov = pscan.phi_cov_reduce(phi, _qk(phi, cbb, sign_gyro, noise, dt), ax)
     end_time = torch.amax(torch.where(imu.dt > 0, imu.time, state0.time[..., None]), dim=-1)
-    last = lambda x: x.select(ax, -1)  # noqa: E731
-    return _summary(last(dt_new), last(dp_all), last(dv_all), last(dq_all), bg0, ba0, jac, cov,
-                    gravity, iewn, sum_dtpn, last(ap_all), last(aq_all), last(av_all), end_time)
+    return _Chains(ax=ax, dt=dt, dth=dth, dvl=dvl, dt_new=dt_new, dq_all=dq_all, rot_prev=rot_prev, cbb=cbb,
+                   sign_gyro=sign_gyro, dvel_d=quat.rotate(rot_prev, dvfb), ap_all=ap_all, aq_all=aq_all,
+                   av_all=av_all, gravity=gravity, iewn=iewn, sum_dtpn=sum_dtpn, end_time=end_time)
+
+
+def _delta_integrals(ch: _Chains):
+    """(dp, dv) at the series' end from the delta-velocity increments."""
+    ax = ch.ax
+    dv_all = torch.cumsum(ch.dvel_d, dim=ax)
+    dv_prev = pscan.shift_prev(dv_all, torch.zeros_like(dv_all.select(ax, 0)), ax)
+    dp_all = torch.cumsum(0.5 * ch.dt[..., None] * (dv_prev + dv_all), dim=ax)
+    return dp_all.select(ax, -1), dv_all.select(ax, -1)
+
+
+def preintegrate(params: IntegrationParams, imu: ImuBatch, state0: NavState, *,
+                 with_earth: bool, iewn=None):
+    """Preintegrate a zero-padded IMU series (..., S) from absolute state0.
+
+    imu[..., 0] is the anchor sample (NOT integrated: it carries the
+    dual-sample history, imu_buffer_[0] in the reference); samples 1..S-1
+    with dt > 0 are integrated. Biases are frozen at state0.bg/ba. Leading
+    dims of (imu, state0, iewn) are batch dims.
+
+    The per-sample loop becomes the prefix chains of :func:`_chains` and a
+    tree reduction of the (Phi, Q) pairs for the covariance and bias
+    jacobians. Matches :func:`preintegrate_seq` to f64 reassociation."""
+    if imu.dt.shape[-1] <= 1:
+        return preintegrate_seq(params, imu, state0, with_earth=with_earth, iewn=iewn)
+    ch = _chains(params, imu, state0, with_earth, iewn)
+    noise = torch.diag(_noise_diag(params))
+    phi = _phi_batch(ch.dt, ch.dth, ch.dvl, ch.cbb, params.corr_time)
+    jac, cov = pscan.phi_cov_reduce(phi, _qk(phi, ch.cbb, ch.sign_gyro, noise, ch.dt), ch.ax)
+    dp, dv = _delta_integrals(ch)
+    last = lambda x: x.select(ch.ax, -1)  # noqa: E731
+    return _summary(last(ch.dt_new), dp, dv, last(ch.dq_all), state0.bg, state0.ba, jac, cov, ch.gravity,
+                    ch.iewn, ch.sum_dtpn, last(ch.ap_all), last(ch.aq_all), last(ch.av_all), ch.end_time)
 
 
 def preintegrate_batch(params, imu_batch, states0, *, with_earth, iewn_batch=None):

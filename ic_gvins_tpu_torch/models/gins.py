@@ -35,10 +35,6 @@ class GinsModel:
     """Deterministic GNSS/INS replay engine."""
 
     def __init__(self, cfg: GvinsConfig, outdir=None, window_nodes=None, device="cuda"):
-        if cfg.isuseodo:
-            raise NotImplementedError(
-                "isuseodo=True: the wheel-odometer replay is not ported yet (ROADMAP.md Queue 1, "
-                "item 14: ins/preintegration_odo.py, factors/preint_odo_factor.py)")
         self.cfg = cfg
         self.device = torch.device(device)
         n_window = window_nodes or cfg.optimize_windows_size + 2
@@ -178,6 +174,9 @@ class GinsModel:
         pose_std = np.array([0.1, 0.1, 0.1, 0.5 * D2R, 0.5 * D2R, 1.5 * D2R])
         mix_prior = np.concatenate([state0.v, state0.bg, state0.ba])
         mix_std = np.concatenate([np.full(3, 0.1), np.full(3, bg_std), np.full(3, ACCELEROMETER_BIAS_PRIOR_STD)])
+        if self.cfg.isuseodo:   # sodo prior: 5000 PPM (ic_gvins.cc:1917,1934)
+            mix_prior = np.concatenate([mix_prior, [float(state0.sodo)]])
+            mix_std = np.concatenate([mix_std, [0.005]])
         self.est.set_prior(pose_prior, pose_std, mix_prior, mix_std)
 
     # ------------------------------------------------------------------

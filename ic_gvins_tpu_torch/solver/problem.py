@@ -15,12 +15,13 @@ i*N + j of its node pair, its gradient in an (N, ND) tensor by node. The
 JAX package's one-hot contractions and mask band embeds are TPU lowering
 choices; padded rows carry index 0 and weight 0 and add exact zeros.
 
-Local parameter layout (D = N*15 + 7 + L columns):
-  node k: [k*15, k*15+6)  pose tangent (dp, dtheta)
-          [k*15+6, k*15+15) mix (v, bg, ba)
-  ext:    [N*15, N*15+6)  camera-IMU extrinsic pose tangent
-  td:     N*15+6          camera-IMU time delay
-  lm j:   N*15+7+j        inverse depth
+Local parameter layout (D = N*ND + 7 + L columns; ND = 15, or 16 with the
+wheel odometer):
+  node k: [k*ND, k*ND+6)  pose tangent (dp, dtheta)
+          [k*ND+6, k*ND+ND) mix (v, bg, ba[, sodo])
+  ext:    [N*ND, N*ND+6)  camera-IMU extrinsic pose tangent
+  td:     N*ND+6          camera-IMU time delay
+  lm j:   N*ND+7+j        inverse depth
 """
 
 from typing import NamedTuple
@@ -29,20 +30,15 @@ import torch
 import torch.nn.functional as F
 
 from ..core import quaternion as quat
-from ..factors import basic, preint_factor, reprojection
+from ..factors import basic, preint_factor, preint_odo_factor, reprojection
 from ..factors.robust import correct_blocks, huber_rho
 from ..ins.preintegration import PreintSummary
+from ..ins.preintegration_odo import PreintOdoSummary
 
 NODE_DIM = 15
 POSE_LOCAL = 6
 MIX_DIM = 9
 F64 = torch.float64
-
-
-def _odo_unported():
-    raise NotImplementedError(
-        "the wheel-odometer variants (with_odo) are not ported yet: ROADMAP.md Queue 1, item 14 "
-        "(ins/preintegration_odo.py, factors/preint_odo_factor.py)")
 
 
 class WindowConfig(NamedTuple):
@@ -111,7 +107,7 @@ class WindowParams(NamedTuple):
     """Optimizable parameters."""
 
     poses: torch.Tensor      # (N,7) [p, q_xyzw]
-    mixes: torch.Tensor      # (N,9) [v, bg, ba]
+    mixes: torch.Tensor      # (N, mix_dim) [v, bg, ba(, sodo)]
     ext: torch.Tensor        # (7,)  camera-IMU extrinsic
     td: torch.Tensor         # ()    time delay
     invdepths: torch.Tensor  # (L,)
@@ -155,21 +151,23 @@ class GnssTable(NamedTuple):
 
 
 def empty_preint_summary(cfg, device=None):
-    """The PreintSummary of P padded slots (finite, unit whitener)."""
-    if cfg.with_odo:
-        _odo_unported()
+    """The summary of P padded slots (finite, unit whitener): a
+    PreintSummary, or a PreintOdoSummary with the odometer."""
     P = cfg.P
     z3, z33 = _z(P, 3, device=device), _z(P, 3, 3, device=device)
     eye = torch.eye(cfg.preint_res, dtype=F64, device=device).repeat(P, 1, 1)
-    return PreintSummary(
+    common = dict(
         dt=torch.ones(P, dtype=F64, device=device), dp=z3, dv=z3, dq=_unit_q(P, device), bg0=z3, ba0=z3,
         dp_dbg=z33, dp_dba=z33, dv_dbg=z33, dv_dba=z33, dq_dbg=z33, sqrt_info=eye, cov=eye.clone(),
         gravity=z3, iewn=z3, sum_dtpn=z3, end_p=z3, end_q=_unit_q(P, device), end_v=z3,
         end_time=_z(P, device=device))
+    if cfg.with_odo:
+        return PreintOdoSummary(ds=z3, sodo0=_z(P, device=device), ds_dbg=z33, ds_dsodo=z3, **common)
+    return PreintSummary(**common)
 
 
 class PreintTable(NamedTuple):
-    summ: PreintSummary   # batched (P, ...)
+    summ: PreintSummary   # batched (P, ...); PreintOdoSummary with the odometer
     idx0: torch.Tensor    # (P,) int64: factor connects idx0, idx0+1
     valid: torch.Tensor   # (P,)
 
@@ -212,8 +210,8 @@ class PriorTable(NamedTuple):
 
     pose_prior: torch.Tensor      # (7,)
     pose_prior_std: torch.Tensor  # (6,)
-    mix_prior: torch.Tensor       # (9,)
-    mix_prior_std: torch.Tensor   # (9,)
+    mix_prior: torch.Tensor       # (mix_dim,)
+    mix_prior_std: torch.Tensor   # (mix_dim,)
     valid: torch.Tensor           # () 0/1
     imuerr_idx: torch.Tensor      # () int64 node of the newest mix
     imuerr_valid: torch.Tensor    # () 0/1 (off inside marginalization)
@@ -282,10 +280,23 @@ def _preint_args(params, t: PreintTable):
     return t.summ, params.poses[i0], params.mixes[i0], params.poses[i1], params.mixes[i1]
 
 
-def _preint_residuals(params, t: PreintTable, cfg: WindowConfig):
+def _preint_factor(cfg: WindowConfig):
+    """The variant's factor module, the reference's Preintegration factory
+    (preintegration/preintegration.h:32-119): NORMAL/EARTH the 15-res
+    factor, ODO/EARTH_ODO the 19-res odometer factor."""
+    return preint_odo_factor if cfg.with_odo else preint_factor
+
+
+def _imu_error_fns(cfg: WindowConfig):
+    """The 6-res bias prior, or the 7-res one with the sodo leg
+    (imu_error_factor.h:45-92): (residual, jacobian)."""
     if cfg.with_odo:
-        _odo_unported()
-    return preint_factor.residual(*_preint_args(params, t), with_earth=cfg.with_earth)  # (P,15)
+        return basic.imu_error_residual_odo, basic.imu_error_jacobian_odo
+    return basic.imu_error_residual, basic.imu_error_jacobian
+
+
+def _preint_residuals(params, t: PreintTable, cfg: WindowConfig):
+    return _preint_factor(cfg).residual(*_preint_args(params, t), with_earth=cfg.with_earth)  # (P, preint_res)
 
 
 def _reproj_inputs(params, t: ReprojTable):
@@ -337,7 +348,7 @@ def total_cost(params, tables: FactorTables, cfg: WindowConfig):
     cost = cost + 0.5 * _robust_sum(_reproj_residuals(params, tables.reproj), tables.reproj)
 
     pr = tables.prior
-    re = basic.imu_error_residual(params.mixes[pr.imuerr_idx])   # newest mix
+    re = _imu_error_fns(cfg)[0](params.mixes[pr.imuerr_idx])   # newest mix
     cost = cost + 0.5 * pr.imuerr_valid * torch.sum(re * re)
     rpp = basic.pose_prior_residual(params.poses[0], pr.pose_prior, pr.pose_prior_std)
     rmp = basic.mix_prior_residual(params.mixes[0], pr.mix_prior, pr.mix_prior_std)
@@ -425,8 +436,6 @@ def build_normal_blocks(params, tables: FactorTables, cfg: WindowConfig):
     (Hss (Ds,Ds), Hsl (Ds,L), hll (L,), b (D,) = -Jᵀr, act (D,)). The
     landmark-landmark block is diagonal by construction (each factor touches
     one landmark; the marginalization prior carries none)."""
-    if cfg.with_odo:
-        _odo_unported()
     N, L, ND = cfg.N, cfg.L, cfg.node_dim
     Ds = cfg.lm_off
     dev = params.poses.device
@@ -444,11 +453,12 @@ def build_normal_blocks(params, tables: FactorTables, cfg: WindowConfig):
     gidx.append(t.idx)
     gvec.append(F.pad(_jtr(Jg, rg, t.valid), (0, ND - POSE_LOCAL)))
 
-    # ---- preintegration (15 res, 30 cols over nodes idx0, idx0+1) ----
+    # ---- preintegration (15 or 19 res, 2*ND cols over nodes idx0, idx0+1) ----
     t = tables.preint
     args = _preint_args(params, t)
-    rp = preint_factor.residual(*args, with_earth=cfg.with_earth)
-    Jcat = torch.cat(preint_factor.jacobians(*args, with_earth=cfg.with_earth), dim=-1)
+    pf = _preint_factor(cfg)
+    rp = pf.residual(*args, with_earth=cfg.with_earth)
+    Jcat = torch.cat(pf.jacobians(*args, with_earth=cfg.with_earth), dim=-1)
     JtJ, Jtr = _jtj(Jcat, t.valid), _jtr(Jcat, rp, t.valid)
     i0, i1 = t.idx0, t.idx0 + 1
     hidx += [pair(i0, i0), pair(i1, i1), pair(i0, i1), pair(i1, i0)]
@@ -483,8 +493,9 @@ def build_normal_blocks(params, tables: FactorTables, cfg: WindowConfig):
     # ---- imu error factor on the newest mix ----
     pr = tables.prior
     k = pr.imuerr_idx.reshape(1)
-    re = basic.imu_error_residual(params.mixes[k])                       # (1,6)
-    Je = basic.imu_error_jacobian(device=dev)
+    res_fn, jac_fn = _imu_error_fns(cfg)
+    re = res_fn(params.mixes[k])                                         # (1, 6 or 7)
+    Je = jac_fn(device=dev)
     hidx.append(pair(k, k))
     hblk.append(_pad_block((Je.T @ Je)[None] * pr.imuerr_valid, ND, POSE_LOCAL))
     gidx.append(k)

@@ -164,12 +164,13 @@ def test_gnss_gap_chains_time_nodes():
 
 
 def test_odometer_raises_and_entry_point_defaults_to_cuda():
-    """isuseodo=True is refused (no fallback runs in its place); GinsModel runs
-    on the card unless the caller asks for the CPU, and without CUDA its first
-    device op raises."""
+    """isuseodo=True no longer raises: it builds the odometer window (10-dim
+    mix blocks, 19-res preintegration; its replays are held against the JAX
+    twin in tests/test_torch_odo.py). GinsModel runs on the card unless the
+    caller asks for the CPU, and without CUDA its first device op raises."""
     imu, gnss, truth = chip_smoke.gins_world(turn_duration=2.0)
-    with pytest.raises(NotImplementedError, match="odometer"):
-        TGins(tparse(raw_cfg(truth, False, isuseodo=True)), device="cpu")
+    odo = TGins(tparse(raw_cfg(truth, False, isuseodo=True)), device="cpu")
+    assert odo.wcfg.with_odo and odo.wcfg.mix_dim == 10 and odo.wcfg.preint_res == 19
     assert inspect.signature(TGins).parameters["device"].default == "cuda"
     model = TGins(tparse(raw_cfg(truth, False)))
     assert model.device.type == "cuda"

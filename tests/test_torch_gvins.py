@@ -5,7 +5,9 @@ background, camera = body, extrinsic and td estimation off), its drive cut to
 14 s (``make_gins_dataset(turn_duration=8.0)``: the window still fills to
 TRACKING_NORMAL and marginalizes). The JAX solve runs in its f64 mode
 (``precise=True``) and the port's RANSAC draws the JAX package's hypothesis
-table, so the two replays see the same frontend decisions. Also: the
+table, so the two replays see the same frontend decisions. The JAX replay
+runs in a child process with the CPU client's async dispatch off, which
+makes it the same under any load of the machine (ROADMAP R3). Also: the
 estimator's structure edits (``truncate_to``, ``merge_node``,
 ``insert_prior_slot``) against the JAX estimator, the reprojection-table
 packing on every episode of the replay, the solve tiers, the extrinsic/td
@@ -33,6 +35,9 @@ Tolerances, each against the JAX twin:
 import functools
 import inspect
 import os
+import pickle
+import subprocess
+import sys
 import types
 
 import jax
@@ -110,40 +115,113 @@ def spy(mp, cls, name, log, what):
     mp.setattr(cls, name, wrapped)
 
 
-@pytest.fixture(scope="module")
-def replays(tmp_path_factory):
-    """Both replays with output files and visualization on. The port's run
-    also packs every episode's reprojection table with the JAX function on
-    the port's own map and window."""
-    imu, gnss, truth, frame_times, images = world()
-    dirs = (str(tmp_path_factory.mktemp("jax_gvins")), str(tmp_path_factory.mktemp("port_gvins")))
-    logs = {"jax": [], "port": [], "packs": []}
-    state = lambda self, _: (self.state, self.est.n_nodes if self.est else 0)  # noqa: E731
+TESTS = os.path.dirname(os.path.abspath(__file__))
+# JAX replays run in a child process with the CPU client's async dispatch
+# off: with it on, a device read of a host mirror can race the mirror's
+# in-place edit, and a JAX trajectory then moves with the load of the
+# machine (ROADMAP R3). With it off a JAX replay is the same under any load
+# and equals a run alone. A tier-1 process has started its CPU client before
+# a fixture runs, so the setting needs a process of its own.
+_JAX_CHILD = ("import importlib, sys; sys.path[:0] = sys.argv[1:3]; import conftest, jax; "
+              "jax.config.update('jax_cpu_enable_async_dispatch', sys.argv[3] == 'async'); "
+              "module, name = sys.argv[4].split(':'); getattr(importlib.import_module(module), name)(*sys.argv[5:])")
 
+
+def jax_child(target, *args, dispatch="sync"):
+    """Start ``module:function(*args)`` of tests/ in a child process, the JAX
+    CPU client's dispatch ``sync`` or ``async``."""
+    return subprocess.Popen([sys.executable, "-c", _JAX_CHILD, TESTS, os.path.dirname(TESTS), dispatch, target,
+                             *args], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def jax_result(child, out_path, timeout=1200):
+    """Wait for a ``jax_child``; returns what it pickled to out_path."""
+    out, _ = child.communicate(timeout=timeout)
+    assert child.returncode == 0, out
+    with open(out_path, "rb") as f:
+        return pickle.load(f)
+
+
+def _state(self, _):
+    return self.state, self.est.n_nodes if self.est else 0
+
+
+def jax_replay(outdir, out_path):
+    """The JAX replay of ``world()`` (its solve in f64) with output files
+    and visualization on, into outdir; pickles to out_path its trajectory,
+    the state after every frame and what the tests read of the model."""
+    imu, gnss, truth, frame_times, images = world()
+    log = []
     mp = pytest.MonkeyPatch()
     try:
         mp.setattr(jest, "_solve_jit", _precise_solve_jit)
-        spy(mp, JGvins, "_process_frame", logs["jax"], state)
-        jm = JGvins(jparse(raw_cfg(truth)), outdir=dirs[0])
+        spy(mp, JGvins, "_process_frame", log, _state)
+        jm = JGvins(jparse(raw_cfg(truth)), outdir=outdir)
         jt = jm.run(imu, gnss, frame_times, lambda k: images[k])
     finally:
         mp.undo()
+    model = dict(state=jm.state, tier_counts=jm.tier_counts, tier_counts_marg=jm.tier_counts_marg,
+                 n_nodes=jm.est.n_nodes, times=jm.est.times, mixes=jm.est.mixes,
+                 n_keyframes=len(jm.vmap.keyframes), n_landmarks=len(jm.vmap.landmarks),
+                 n_fixed_points=len(jm.drawer.fixed_points))
+    with open(out_path, "wb") as f:
+        pickle.dump((model, np.asarray(jt), log), f)
+
+
+@pytest.fixture(scope="module")
+def replays(tmp_path_factory):
+    """Both replays with output files and visualization on: the JAX one in
+    a child process (``jax_replay``; ``jm`` is what it reports of its
+    model), the port's here meanwhile. The port's run also packs every
+    episode's reprojection table with the JAX function on the port's own
+    map and window."""
+    imu, gnss, truth, frame_times, images = world()
+    dirs = (str(tmp_path_factory.mktemp("jax_gvins")), str(tmp_path_factory.mktemp("port_gvins")))
+    out_path = os.path.join(dirs[0], "jax_replay.pkl")
+    child = jax_child("test_torch_gvins:jax_replay", dirs[0], out_path)
+    logs = {"port": [], "packs": []}
 
     def packed_by_jax(self, out):
         slots = self._lm_slots
         proxy = types.SimpleNamespace(wcfg=self.wcfg, est=self.est, vmap=self.vmap, camera=self.camera)
         return out, JGvins._build_reproj_table(proxy, slots)
 
+    mp = pytest.MonkeyPatch()
     try:
         mp.setattr(transac, "_draw_samples", lambda valid, num_hyp, generator:
                    torch.tensor(np.asarray(_jax_table(jnp.asarray(valid.numpy())))))
-        spy(mp, TGvins, "_process_frame", logs["port"], state)
+        spy(mp, TGvins, "_process_frame", logs["port"], _state)
         spy(mp, TGvins, "_build_reproj_table", logs["packs"], packed_by_jax)
         tm = TGvins(tparse(raw_cfg(truth)), outdir=dirs[1], device="cpu")
         tt = tm.run(imu, gnss, frame_times, lambda k: images[k])
     finally:
         mp.undo()
-    return jm, jt, tm, tt, truth, dirs, logs
+        model, jt, logs["jax"] = jax_result(child, out_path)
+    return types.SimpleNamespace(**model), jt, tm, tt, truth, dirs, logs
+
+
+@pytest.mark.slow
+def test_jax_twin_is_the_same_under_load(tmp_path):
+    """ROADMAP R3: the fixture's JAX replay run alone, then four copies at
+    once with the CPU client's async dispatch off (as the fixture runs it),
+    then four with it on. Prints each copy's largest position difference to
+    the run alone; the copies with it off equal it bit for bit."""
+    def runs(tag, dispatch, n):
+        kids = []
+        for i in range(n):
+            d = tmp_path / f"{tag}{i}"
+            d.mkdir()
+            kids.append((jax_child("test_torch_gvins:jax_replay", str(d), str(d / "out.pkl"), dispatch=dispatch),
+                         str(d / "out.pkl")))
+        return [jax_result(child, path)[1] for child, path in kids]
+
+    alone = runs("alone", "sync", 1)[0]
+    diffs = {}
+    for dispatch in ("sync", "async"):
+        diffs[dispatch] = [float(np.abs(t[:, 1:4] - alone[:, 1:4]).max()) if t.shape == alone.shape else float("inf")
+                           for t in runs(dispatch, dispatch, 4)]
+    print(f"\nfour copies at once against the run alone, largest position difference (m): {diffs}")
+    assert diffs["sync"] == [0.0] * 4
 
 
 def test_replay_matches_jax_twin(replays):
@@ -156,11 +234,11 @@ def test_replay_matches_jax_twin(replays):
     np.testing.assert_array_equal(tt[:, 0], jt[:, 0])                      # node times
     np.testing.assert_allclose(tt[:, 1:4], jt[:, 1:4], atol=TWIN["pos"], rtol=0)
     np.testing.assert_allclose(tt[:, 4:8], jt[:, 4:8], atol=TWIN["att"], rtol=0)
-    assert tm.est.n_nodes == jm.est.n_nodes
-    np.testing.assert_array_equal(tm.est.times, jm.est.times)
-    np.testing.assert_allclose(tm.est.mixes[:, :3], jm.est.mixes[:, :3], atol=TWIN["vel"], rtol=0)
-    assert len(tm.vmap.keyframes) == len(jm.vmap.keyframes)
-    assert abs(len(tm.vmap.landmarks) - len(jm.vmap.landmarks)) <= TWIN["features"]
+    assert tm.est.n_nodes == jm.n_nodes
+    np.testing.assert_array_equal(tm.est.times, jm.times)
+    np.testing.assert_allclose(tm.est.mixes[:, :3], jm.mixes[:, :3], atol=TWIN["vel"], rtol=0)
+    assert len(tm.vmap.keyframes) == jm.n_keyframes
+    assert abs(len(tm.vmap.landmarks) - jm.n_landmarks) <= TWIN["features"]
     assert tm.est.check_time_consistency() == []
 
 
@@ -192,7 +270,7 @@ def test_replay_accuracy_and_outputs(replays):
     pngs = lambda d: sorted(os.listdir(os.path.join(d, "tracking")))  # noqa: E731
     assert pngs(tdir) == pngs(jdir) and len(pngs(tdir)) >= 2
     assert os.path.exists(os.path.join(tdir, "path.png"))
-    assert len(tm.drawer.fixed_points) == len(jm.drawer.fixed_points) > 0
+    assert len(tm.drawer.fixed_points) == jm.n_fixed_points > 0
 
 
 def test_reproj_packing_matches_jax_on_every_episode(replays):

@@ -105,16 +105,25 @@ def test_port_landmarks_near_truth(both_runs):
 def test_port_imports_no_jax_or_yaml():
     mods = ["ic_gvins_tpu_torch", "ic_gvins_tpu_torch.convert", "ic_gvins_tpu_torch.ops._build"] + [
         f"ic_gvins_tpu_torch.{p}.{m}" for p, ms in
-        (("core", ("rotation_np", "quaternion", "earth", "earth_np", "types")),
+        (("core", ("rotation_np", "quaternion", "earth", "earth_np", "types", "gpstime")),
          ("engine", ("config", "host", "replay", "estimator", "output")),
-         ("ins", ("parallel_scan", "mechanization", "preintegration")),
-         ("factors", ("robust", "basic", "preint_factor", "reprojection", "marginalization")),
+         ("ins", ("parallel_scan", "mechanization", "preintegration", "preintegration_odo")),
+         ("factors", ("robust", "basic", "preint_factor", "preint_odo_factor", "reprojection",
+                      "marginalization")),
          ("solver", ("problem", "lm")),
          ("models", ("gins", "gvins")),
          ("vision", ("map", "camera", "pyramid", "lk", "features", "ransac", "tracking", "drawer")),
-         ("ops", ("clahe", "lk", "subpix"))) for m in ms]
-    code = ("import importlib, sys\n"
+         ("ops", ("clahe", "lk", "subpix")),
+         ("io", ("dataset",)),
+         ("utils", ("logger", "timecost"))) for m in ms]
+    # the runner and chip_smoke.py too (imported as modules: their work runs
+    # under their __main__ checks)
+    scripts = [str(REPO / "scripts" / "run_gvins_torch.py"), str(REPO / "chip_smoke.py")]
+    code = ("import importlib, importlib.util, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
+            f"for i, path in enumerate({scripts!r}):\n"
+            "    spec = importlib.util.spec_from_file_location(f'script{i}', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "bad = [m for m in ('jax', 'yaml', 'ic_gvins_tpu') if m in sys.modules]\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
