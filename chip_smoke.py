@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU (H100): its visual frontend, its
-GNSS/INS replay (with and without the wheel odometer) and its
-GNSS-visual-inertial replay, from memory and from files.
+GNSS/INS replay (with and without the wheel odometer), its
+GNSS-visual-inertial replay, from memory and from files, and its batched
+forms over a device mesh and its checkpoint.
 
 Run from the repository root, with no arguments:
 
@@ -75,9 +76,25 @@ of JAX. Phases, in order; any failure raises and the script exits nonzero:
    alike: on these files it stops after the frame at 40.25 s (on the CPU),
    every gate whose window lies after the stop is printed NOT MET (ROADMAP
    R1) and the phase holds the gates of the span that ran.
+9. the batched forms of ``parallel/mesh.py`` on ``make_mesh()`` (the card)
+   and the checkpoint (``fleet_phase``): B = 1, 8 and 32 distinct windows
+   of ``np_problem`` (this script's copy of ``__graft_entry__._np_problem``)
+   at the production widths (N 20, L 512, G 24, R 2048, earth rate on)
+   through ``sharded_two_pass`` with 20 iterations, each element against
+   its own single solve, wall time against the B single solves looped,
+   host reads, the busy share of one profiled solve at B = 8;
+   ``sharded_frontend`` on 4 worlds of the slice (200 features), each
+   kernel's one launch for all worlds against its batched plain version
+   (phase 3's checks), each world against its unbatched frame, the launch
+   counters zeroed just before the batched call and read just after,
+   device-only ms a world; ``sharded_marg_step`` and ``sharded_ins_step``
+   on 8 worlds, each against its single call; phase 6's estimator saved
+   with ``save_checkpoint``, loaded into a fresh estimator on the card and
+   both optimized once more.
 
 Each phase prints its seconds. The kernels' ``launches`` are phase 8's
-replay's (``launches_by_path`` keeps phase 4's and phase 7's too).
+replay's (``launches_by_path`` keeps phase 4's, phase 7's and phase 9's
+batched frame's too).
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. The helpers take the port's modules as
@@ -372,11 +389,11 @@ def check_subpix(torch, ksubpix, tag, args):
     points agree within 1e-3 px in the median and within 0.05 px for >= 99 %,
     the step counts are equal for >= 99 %, and invalid slots stay put.
     Returns (max difference, plain output, plain step counts)."""
-    n, valid_s = args[1].shape[0], args[2]
-    iters_k, steps_p = (torch.zeros(n, dtype=torch.int32, device=args[0].device) for _ in range(2))
+    valid_s = args[2]
+    iters_k, steps_p = (torch.zeros(valid_s.shape, dtype=torch.int32, device=args[0].device) for _ in range(2))
     out_k = ksubpix.subpix(*args, iters=iters_k)
     out_p = ksubpix.subpix_plain(*args, steps=steps_p)
-    e = torch.linalg.vector_norm(out_k - out_p, dim=1)[valid_s]
+    e = torch.linalg.vector_norm(out_k - out_p, dim=-1)[valid_s]
     assert e.numel() > 0, f"K2 {tag}: no valid corner"
     med, within = float(e.median()), float((e <= 0.05).float().mean())
     same = float((iters_k == steps_p)[valid_s].float().mean())
@@ -691,7 +708,8 @@ def device_activity(torch, prof, wall_ms):
 def gins_phase(torch, card):
     """Phase 6: the port's GinsModel on the card at full size, its gates, its
     stage times, host reads, launches and busy share; then CUDA against the
-    CPU on the 24 s world, earth off and on."""
+    CPU on the 24 s world, earth off and on. Returns the first replay's
+    model."""
     import tempfile
 
     from ic_gvins_tpu_torch.engine import estimator as est_mod
@@ -821,6 +839,7 @@ def gins_phase(torch, card):
         assert dp < GINS_CUDA_CPU_TOL, f"CUDA and CPU differ by {dp} m"
     odo_replay(torch, card)
     print(f"[gins] phase 6 took {time.perf_counter() - t_phase:.1f} s")
+    return model
 
 
 def odo_replay(torch, card):
@@ -1552,6 +1571,439 @@ def long_phase(torch, card, wrappers):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 9: the batched forms of parallel/mesh.py, and the checkpoint
+# --------------------------------------------------------------------------
+
+def np_problem(cfg, seed=0):
+    """A COPY of ``__graft_entry__._np_problem`` (that module imports the JAX
+    package): one synthetic VIO-shaped window problem (GNSS +
+    preintegration + reprojection factors) assembled in numpy, line for
+    line, as the port's WindowParams / FactorTables NamedTuples with numpy
+    leaves (``convert.window_params`` / ``factor_tables`` take them to the
+    card). Problems differ per seed in node count, landmark count,
+    trajectory and landmark geometry. tests/test_torch_parallel.py holds
+    the copy against the original leaf for leaf."""
+    from ic_gvins_tpu_torch.ins.preintegration import PreintSummary
+    from ic_gvins_tpu_torch.ins.preintegration_odo import PreintOdoSummary
+    from ic_gvins_tpu_torch.solver.problem import (
+        FactorTables, GnssTable, MargPrior, PreintTable, PriorTable,
+        ReprojTable, WindowParams,
+    )
+
+    rng = np.random.default_rng(seed)
+    n_nodes = min(3 + (seed % 2), cfg.N)
+    n_lm = min(24 + 4 * (seed % 3), cfg.L)
+    heading = 0.15 * (seed % 5)
+
+    poses = np.zeros((cfg.N, 7))
+    poses[:, 6] = 1.0
+    step = np.array([0.4 * np.cos(heading), 0.4 * np.sin(heading), 0.0])
+    for k in range(n_nodes):
+        poses[k, :3] = k * step + 0.02 * k * np.array([0.0, 1.0, 0.0])
+
+    params = WindowParams(
+        poses=poses,
+        mixes=np.zeros((cfg.N, cfg.mix_dim)),
+        ext=np.array([0.0, 0, 0, 0, 0, 0, 1.0]),
+        td=np.zeros(()),
+        invdepths=np.full(cfg.L, 0.1),
+    )
+
+    # ---- GNSS ----
+    g_n = min(n_nodes, cfg.G)
+    gnss = GnssTable(
+        idx=np.zeros(cfg.G, np.int32),
+        blh=np.zeros((cfg.G, 3)),
+        std=np.ones((cfg.G, 3)),
+        valid=np.zeros(cfg.G),
+        robust=np.ones(()),
+    )
+    gnss.idx[:g_n] = np.arange(g_n)
+    gnss.blh[:g_n] = poses[:g_n, :3] + rng.normal(0, 0.05, (g_n, 3))
+    gnss.std[:g_n] = 0.1
+    gnss.valid[:g_n] = 1.0
+
+    # ---- preintegration (identity-delta summaries; gravity zero to match
+    # the gravity-free synthetic trajectory under either earth variant) ----
+    P = cfg.P
+    z3 = np.zeros((P, 3))
+    z33 = np.zeros((P, 3, 3))
+    qid = np.tile(np.array([0.0, 0, 0, 1.0]), (P, 1))
+    nres = cfg.preint_res
+    common = dict(
+        dt=np.ones(P), dp=z3.copy(), dv=z3.copy(), dq=qid.copy(),
+        bg0=z3.copy(), ba0=z3.copy(),
+        dp_dbg=z33.copy(), dp_dba=z33.copy(), dv_dbg=z33.copy(),
+        dv_dba=z33.copy(), dq_dbg=z33.copy(),
+        sqrt_info=np.tile(np.eye(nres), (P, 1, 1)),
+        cov=np.tile(np.eye(nres), (P, 1, 1)),
+        gravity=z3.copy(), iewn=z3.copy(), sum_dtpn=z3.copy(),
+        end_p=z3.copy(), end_q=qid.copy(), end_v=z3.copy(),
+        end_time=np.zeros(P),
+    )
+    # consecutive-node deltas consistent with the trajectory (dp in body
+    # frame of node k = world frame here: identity orientations)
+    for k in range(n_nodes - 1):
+        common["dp"][k] = poses[k + 1, :3] - poses[k, :3]
+    if cfg.with_odo:
+        summ = PreintOdoSummary(
+            ds=z3.copy(), sodo0=np.zeros(P), ds_dbg=z33.copy(),
+            ds_dsodo=z3.copy(), **common)
+    else:
+        summ = PreintSummary(**common)
+    preint = PreintTable(
+        summ=summ,
+        idx0=np.arange(P, dtype=np.int32),
+        valid=(np.arange(P) < n_nodes - 1).astype(np.float64),
+    )
+
+    # ---- reprojection: landmarks ~8 m ahead observed from nodes 1.. ----
+    reproj = ReprojTable(
+        ref_idx=np.zeros(cfg.R, np.int32),
+        obs_idx=np.ones(cfg.R, np.int32),
+        lm_idx=np.zeros(cfg.R, np.int32),
+        pts0=np.tile(np.array([0.0, 0, 1.0]), (cfg.R, 1)),
+        pts1=np.tile(np.array([0.0, 0, 1.0]), (cfg.R, 1)),
+        vel0=np.zeros((cfg.R, 3)), vel1=np.zeros((cfg.R, 3)),
+        td0=np.zeros(cfg.R), td1=np.zeros(cfg.R),
+        valid=np.zeros(cfg.R),
+        sqrt_info=np.asarray(780.0 / 1.5),
+        robust=np.ones(()),
+    )
+    pts_w = rng.uniform(-2, 2, (n_lm, 3)) + np.array([0.5, 0.0, 8.0])
+    invd = np.full(cfg.L, 0.1)
+    slot = 0
+    for j in range(n_lm):
+        pn0 = (pts_w[j] - poses[0, :3]) / (pts_w[j, 2] - poses[0, 2])
+        invd[j] = 1.0 / (pts_w[j, 2] - poses[0, 2])
+        for k in range(1, n_nodes):
+            if slot >= cfg.R:
+                break
+            pn1 = (pts_w[j] - poses[k, :3]) / (pts_w[j, 2] - poses[k, 2])
+            reproj.ref_idx[slot] = 0
+            reproj.obs_idx[slot] = k
+            reproj.lm_idx[slot] = j
+            reproj.pts0[slot] = [pn0[0], pn0[1], 1.0]
+            reproj.pts1[slot] = [pn1[0], pn1[1], 1.0]
+            reproj.valid[slot] = 1.0
+            slot += 1
+    params = params._replace(invdepths=invd)
+
+    prior = PriorTable(
+        pose_prior=np.array([0.0, 0, 0, 0, 0, 0, 1.0]),
+        pose_prior_std=np.ones(6),
+        mix_prior=np.zeros(cfg.mix_dim),
+        mix_prior_std=np.ones(cfg.mix_dim),
+        valid=np.zeros(()),
+        imuerr_idx=np.asarray(n_nodes - 1, np.int32),
+        imuerr_valid=np.ones(()),
+    )
+    zero_params = WindowParams(
+        poses=np.tile(np.array([0.0, 0, 0, 0, 0, 0, 1.0]), (cfg.N, 1)),
+        mixes=np.zeros((cfg.N, cfg.mix_dim)),
+        ext=np.array([0.0, 0, 0, 0, 0, 0, 1.0]),
+        td=np.zeros(()),
+        invdepths=np.full(cfg.L, 0.1),
+    )
+    NP = cfg.lm_off  # the prior lives on its node/ext/td support only
+    margp = MargPrior(
+        H0=np.zeros((NP, NP)), Jte0=np.zeros(NP), c0=np.zeros(()),
+        x0=zero_params, valid=np.zeros(()),
+    )
+
+    tables = FactorTables(
+        gnss=gnss, preint=preint, reproj=reproj, prior=prior, marg=margp,
+        antlever=np.zeros(3),
+        node_valid=(np.arange(cfg.N) < n_nodes).astype(np.float64),
+        lm_valid=(np.arange(cfg.L) < n_lm).astype(np.float64),
+        ext_active=np.zeros(()),
+        td_active=np.zeros(()),
+    )
+    return params, tables
+
+
+FLEET_WINDOW = dict(N=20, L=512, G=24, R=2048, with_earth=True)   # __graft_entry__.py:312
+FLEET_ITERATIONS = 20
+FLEET_BATCHES = (1, 8, 32)
+FLEET_PROFILED = 8               # the batch size profiled for the device busy share
+# A batch element against its single solve after 20 iterations: index_add's
+# atomics and the batched cuBLAS / cuSOLVER calls sum f64 in other orders,
+# and LM carries such differences along the flat directions of these 3-4
+# node windows (measured on the H100: up to 2e-5 m and 9e-7 relative cost;
+# the single solve against itself 6e-8-1.4e-7 m)
+FLEET_POSE_TOL = 1e-4            # m
+FLEET_COST_RTOL = 1e-5           # final cost, relative
+FLEET_REPEATS = 4                # single solves run twice: the card's own run-to-run spread
+FLEET_WORLDS = 4
+FLEET_FEATURES = 200
+FLEET_MARG_B = 8
+FLEET_INS = (8, 512)             # worlds, IMU samples a world (a preintegration segment)
+CKPT_TOL = 1e-9                  # m: the resumed estimator's positions after one more optimize
+
+
+def fleet_solve(torch, card, mesh, problems):
+    """Phase 9a: the two-pass solve of B distinct production-width windows
+    through sharded_two_pass, each element against its own single solve;
+    batched against looped wall time, host reads, device busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ic_gvins_tpu_torch.engine.host import fetch
+    from ic_gvins_tpu_torch.parallel import mesh as pmesh
+    from ic_gvins_tpu_torch.solver import lm
+    from ic_gvins_tpu_torch.solver.problem import WindowConfig, over_problems, total_cost
+
+    cfg = WindowConfig(**FLEET_WINDOW)
+    lm.solve_two_pass(*problems[0], cfg, FLEET_ITERATIONS)      # warm-up: solver handles, allocator
+    singles, single_s = [], []
+    for params, tables in problems:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = lm.solve_two_pass(params, tables, cfg, FLEET_ITERATIONS)
+        torch.cuda.synchronize()
+        single_s.append(time.perf_counter() - t0)
+        singles.append((out[0], total_cost(out[0], out[1], cfg)))
+    spread = max(float((lm.solve_two_pass(*problems[k], cfg, FLEET_ITERATIONS)[0].poses - singles[k][0].poses)
+                       .abs().max()) for k in range(FLEET_REPEATS))
+    print(f"[fleet] the single solve run twice on the card (index_add's atomics sum in either order): "
+          f"poses within {spread:.3g} m over {FLEET_REPEATS} problems")
+    fn, place = pmesh.sharded_two_pass(mesh, cfg, FLEET_ITERATIONS)
+    fn(*(place(pmesh.stack(x)) for x in zip(*problems[:1])))   # warm-up of the batched path
+    rows = {}
+    for B in FLEET_BATCHES:
+        args = [place(pmesh.stack(x)) for x in zip(*problems[:B])]
+        torch.cuda.synchronize()
+        reads0, t0 = fetch.reads, time.perf_counter()
+        out_params, out_tables = pmesh.gather(fn(*args))
+        torch.cuda.synchronize()
+        wall, reads = time.perf_counter() - t0, fetch.reads - reads0
+        costs = over_problems(total_cost, cfg)(out_params, out_tables)
+        dp = max(float((out_params.poses[k] - singles[k][0].poses).abs().max()) for k in range(B))
+        dc = max(abs(float(costs[k] - singles[k][1])) / max(float(singles[k][1]), 1e-12) for k in range(B))
+        looped = sum(single_s[:B])
+        rows[B] = dict(batched_ms=1e3 * wall, looped_ms=1e3 * looped, reads=reads, pose_diff=dp, cost_rel=dc)
+        print(f"[fleet] two-pass solve, B={B}: batched {1e3 * wall:.1f} ms, the B single solves looped "
+              f"{1e3 * looped:.1f} ms ({looped / wall:.2f}x); {reads} host reads; each element against its "
+              f"single solve: poses within {dp:.3g} m, cost within {dc:.3g} relative ({card})")
+        assert dp < FLEET_POSE_TOL and dc < FLEET_COST_RTOL, f"batched solve B={B} disagrees"
+        if B == FLEET_PROFILED:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn(*args)
+                torch.cuda.synchronize()
+                prof_ms = 1e3 * (time.perf_counter() - t0)
+            kernels, busy = device_activity(torch, prof, prof_ms)
+            if kernels is None:
+                print("[fleet] profiler: no device events in the trace; busy share not measured")
+            else:
+                rows[B]["busy_share"] = busy / prof_ms
+                print(f"[fleet] profiled batched solve B={B}: {kernels} CUDA kernels, device busy {busy:.2f} of "
+                      f"{prof_ms:.2f} ms = {100 * busy / prof_ms:.1f} % ({card})")
+    return rows
+
+
+def fleet_frontend(torch, card, mesh, wrappers, images):
+    """Phase 9b: sharded_frontend on FLEET_WORLDS worlds at the slice's size
+    (world b: frame b -> b+1, FLEET_FEATURES features): each kernel's
+    batched launch against its batched plain version, each world against
+    its unbatched frame, one launch per kernel per batched call (CLAHE one
+    per image set), device-only ms per world. Returns the launch counts."""
+    from ic_gvins_tpu_torch.ops import clahe as kclahe
+    from ic_gvins_tpu_torch.ops import lk as klk
+    from ic_gvins_tpu_torch.ops import subpix as ksubpix
+    from ic_gvins_tpu_torch.parallel import mesh as pmesh
+    from ic_gvins_tpu_torch.vision import features as feat
+    from ic_gvins_tpu_torch.vision import pyramid
+
+    B = FLEET_WORLDS
+    dev = torch.device(DEVICE)
+    frames = torch.tensor(np.stack(images[:B + 1]), dtype=torch.float32, device=dev)
+    prev, cur = frames[:B].contiguous(), frames[1:].contiguous()
+    pts, valid = [], []
+    for b in range(B):
+        _, _, c, v = lk_inputs(torch, pyramid, feat, prev[b], cur[b])
+        pts.append(c)
+        valid.append(v & (torch.cumsum(v.int(), 0) <= FLEET_FEATURES))
+    pts, valid = torch.stack(pts), torch.stack(valid)
+    assert int(valid.sum()) >= B * 150, int(valid.sum())
+    F, br, bc, pb, md = SLICE_STATICS
+    kw = dict(levels=4, block=(br, bc, pb), min_distance=md, ransac_thr=CFG["reprojection_error_std"])
+
+    # each kernel's batched launch against its batched plain version (phase 3's checks)
+    tables = pyramid.clahe_tables(prev)
+    check_clahe(kclahe, f"{B} worlds", tables)
+    pyr_p = pyramid.build_pyramid(pyramid.clahe(prev))
+    pyr_c = pyramid.build_pyramid(pyramid.clahe(cur))
+    lk_args = (pyr_p, pyr_c, pts, pts, valid)
+    check_lk(torch, klk, f"{B} worlds", lk_args, 2, 50 * B)
+    c, _, v = feat.detect_blockwise(pyr_c[0], torch.ones_like(pyr_c[0]),
+                                    torch.zeros((B, br * bc), dtype=torch.int32, device=dev),
+                                    block_rows=br, block_cols=bc, per_block=pb, min_distance=md)
+    sp_args = (pyr_c[0], c.contiguous(), v.contiguous())
+    check_subpix(torch, ksubpix, f"{B} worlds", sp_args)
+    one = (tables[0][0].contiguous(), tables[1][0].contiguous(), *tables[2:])
+    for name, batched, single in (
+            ("clahe_apply", lambda: kclahe.clahe_apply(*tables), lambda: kclahe.clahe_apply(*one)),
+            ("lk_pyr", lambda: klk.lk_pyr(*lk_args),
+             lambda: klk.lk_pyr([lv[0] for lv in pyr_p], [lv[0] for lv in pyr_c], pts[0], pts[0], valid[0])),
+            ("subpix", lambda: ksubpix.subpix(*sp_args),
+             lambda: ksubpix.subpix(sp_args[0][0], sp_args[1][0], sp_args[2][0]))):
+        b_ms, s_ms = cuda_ms(torch, batched, queued=True), cuda_ms(torch, single, queued=True)
+        print(f"[fleet] {name}: device-only {b_ms / B:.4f} ms a world in one launch for {B} worlds, "
+              f"{s_ms:.4f} ms for one world alone ({card})")
+
+    # the main path: the batched frame, its launches counted
+    fn, place = pmesh.sharded_frontend(mesh, (H, W), **kw)
+    args = place((prev, cur, pts, valid))
+    fn(*args)
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nxt, ok, corners, cvalid = pmesh.gather(fn(*args))
+    torch.cuda.synchronize()
+    batched_ms = 1e3 * (time.perf_counter() - t0)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"[fleet] frontend frame, {B} worlds {W}x{H} in one batched call: {batched_ms:.2f} ms wall, "
+          f"launches {launches} ({card})")
+    assert launches == {"clahe_apply": 2 * len(mesh), "lk_pyr": len(mesh), "subpix": len(mesh)}, launches
+
+    frame1 = pmesh.frontend_frame_fn((H, W), **kw)
+    single_ms = []
+    for b in range(B):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rn, ro, rc, rv = frame1(prev[b], cur[b], pts[b], valid[b])
+        torch.cuda.synchronize()
+        single_ms.append(1e3 * (time.perf_counter() - t0))
+        dn = float((nxt[b] - rn)[ro].abs().max()) if bool(ro.any()) else 0.0
+        dc = float((corners[b] - rc)[rv].abs().max()) if bool(rv.any()) else 0.0
+        print(f"[fleet] world {b}: {int(ro.sum())} of {int(valid[b].sum())} tracked, ok masks "
+              f"{'equal' if torch.equal(ok[b], ro) else 'DIFFER'}, points within {dn:.3g} px, "
+              f"{int(rv.sum())} corners within {dc:.3g} px of the unbatched frame")
+        assert torch.equal(ok[b], ro) and torch.equal(cvalid[b], rv), f"world {b}: masks differ"
+        assert dn < 1e-3 and dc < 1e-3, f"world {b}: points differ"
+        assert int(ro.sum()) >= 100, f"world {b}: too few tracks"
+    print(f"[fleet] frontend wall per world: batched {batched_ms / B:.2f} ms, unbatched median "
+          f"{np.median(single_ms):.2f} ms (host clock, synchronized) ({card})")
+    return launches
+
+
+def fleet_marg_ins(torch, card, mesh, problems):
+    """Phase 9c: sharded_marg_step and sharded_ins_step at the production
+    widths, each element against its single call."""
+    from ic_gvins_tpu_torch.core.types import ImuBatch, IntegrationParams, NavState
+    from ic_gvins_tpu_torch.factors import marginalization as marg
+    from ic_gvins_tpu_torch.ins import mechanization as mech
+    from ic_gvins_tpu_torch.ins import preintegration as pre
+    from ic_gvins_tpu_torch.parallel import mesh as pmesh
+    from ic_gvins_tpu_torch.solver.problem import WindowConfig
+
+    cfg = WindowConfig(**FLEET_WINDOW)
+    B = FLEET_MARG_B
+    fn, place = pmesh.sharded_marg_step(mesh, cfg)
+    prior = pmesh.gather(fn(*[place(pmesh.stack(x)) for x in zip(*problems[:B])]))
+    worst = 0.0
+    for k in range(B):
+        params, tables = problems[k]
+        mt, mask, _ = marg.select_marg_factors(tables, cfg, 1, 0)
+        ref = marg.shift_prior(marg.marginalize(params, mt, mask, cfg), cfg, 1)
+        scale = max(float(ref.H0.abs().max()), 1.0)
+        worst = max(worst, float((prior.H0[k] - ref.H0).abs().max()) / scale,
+                    float((prior.Jte0[k] - ref.Jte0).abs().max()) / max(float(ref.Jte0.abs().max()), 1.0),
+                    abs(float(prior.c0[k] - ref.c0)) / max(float(ref.c0), 1.0))
+    print(f"[fleet] marginalization step, B={B}: each element's H0, Jte0, c0 within {worst:.3g} of its "
+          f"single call's scale")
+    assert worst < 1e-8, "batched marginalization disagrees"
+
+    nw, ns = FLEET_INS
+    rng = np.random.default_rng(SEED + 9)
+    dev = torch.device(DEVICE)
+    T = lambda a: torch.tensor(np.asarray(a, np.float64), device=dev)  # noqa: E731
+    imu = ImuBatch(time=T(np.tile(np.arange(1, ns + 1) * 0.005, (nw, 1))), dt=T(np.full((nw, ns), 0.005)),
+                   dtheta=T(rng.normal(0, 1e-4, (nw, ns, 3))), dvel=T(rng.normal(0.016, 1e-3, (nw, ns, 3))),
+                   odovel=T(np.zeros((nw, ns))))
+    st = NavState(*[a.expand((nw,) + a.shape).clone() for a in NavState.identity(device=dev)])
+    st = st._replace(p=T(rng.normal(0, 1, (nw, 3))))
+    gravity, iewn = T(np.tile([0.0, 0.0, 9.8], (nw, 1))), T(rng.normal(0, 1e-5, (nw, 3)))
+    int_params = IntegrationParams.default(device=dev)
+    fn, place = pmesh.sharded_ins_step(mesh, int_params, with_earth=True)
+    summ, out = pmesh.gather(fn(*place((imu, st, gravity, iewn))))
+    worst = 0.0
+    for k in range(nw):
+        imu_k, st_k = pmesh.tree_map(lambda a: a[k], imu), pmesh.tree_map(lambda a: a[k], st)
+        ref_s = pre.preintegrate(int_params, imu_k, st_k, with_earth=True)
+        ref_m, _ = mech.mechanize_scan(mech.MechConfig(gravity=gravity[k], iewn=iewn[k]), st_k, imu_k)
+        for a, b in [(getattr(summ, f)[k], getattr(ref_s, f)) for f in pre.PreintSummary._fields] + [
+                (getattr(out, f)[k], getattr(ref_m, f)) for f in ("p", "q", "v")]:
+            worst = max(worst, float((a - b).abs().max()) / max(float(b.abs().max()), 1.0))
+    print(f"[fleet] INS step, {nw} worlds x {ns} samples: each world's preintegration summary and "
+          f"mechanized state within {worst:.3g} (relative to scale) of its single call")
+    assert worst < 1e-9, "batched INS disagrees"
+
+
+def fleet_checkpoint(torch, card, est):
+    """Phase 9d: phase 6's estimator at the end of its replay, saved and
+    loaded into a fresh estimator on the card; one more optimize on both."""
+    import tempfile
+
+    from ic_gvins_tpu_torch.engine import checkpoint as ckpt
+    from ic_gvins_tpu_torch.engine.estimator import SlidingWindowEstimator
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "estimator.npz")
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(path, est, extra=dict(phase=9))
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        fresh = SlidingWindowEstimator(est.wcfg, est.int_params, preint_samples=est.S,
+                                       antlever=est.antlever, origin=est.origin, device=est.device)
+        t0 = time.perf_counter()
+        extra = ckpt.load_checkpoint(path, fresh)
+        load_s = time.perf_counter() - t0
+    assert int(extra["phase"]) == 9 and fresh.marg_prior is not None and est.marg_prior is not None
+    assert fresh.marg_prior.H0.device == est.marg_prior.H0.device
+    _, _, s_a = est.optimize(num_iterations=50, wc=est.wcfg_small)
+    _, _, s_b = fresh.optimize(num_iterations=50, wc=fresh.wcfg_small)
+    n = est.n_nodes
+    dp = float(np.abs(est.poses[:n, :3] - fresh.poses[:n, :3]).max())
+    it_a, it_b = int(s_a.iterations), int(s_b.iterations)
+    print(f"[fleet] checkpoint of the GINS estimator ({n} nodes, marginalization prior on the card): "
+          f"{size} B, saved in {save_s:.3f} s, loaded in {load_s:.3f} s; one more optimize on both: "
+          f"positions within {dp:.3g} m, {it_a} and {it_b} accepted LM steps ({card})")
+    assert fresh.n_nodes == n and dp < CKPT_TOL and it_a == it_b, "the resumed estimator diverged"
+
+
+def fleet_phase(torch, card, wrappers, images, est):
+    """Phase 9: the batched forms of parallel/mesh.py on the card, and the
+    checkpoint. Returns the frontend's launch counts."""
+    from ic_gvins_tpu_torch import convert
+    from ic_gvins_tpu_torch.parallel import mesh as pmesh
+    from ic_gvins_tpu_torch.solver.problem import WindowConfig
+
+    t_phase = time.perf_counter()
+    mesh = pmesh.make_mesh()
+    assert all(d.type == torch.device(DEVICE).type for d in mesh), mesh
+    cfg = WindowConfig(**FLEET_WINDOW)
+    problems = [(convert.window_params(p, DEVICE), convert.factor_tables(t, DEVICE))
+                for p, t in (np_problem(cfg, seed) for seed in range(max(FLEET_BATCHES)))]
+    marks = [time.perf_counter()]
+    fleet_solve(torch, card, mesh, problems)
+    marks.append(time.perf_counter())
+    launches = fleet_frontend(torch, card, mesh, wrappers, images)
+    marks.append(time.perf_counter())
+    fleet_marg_ins(torch, card, mesh, problems)
+    marks.append(time.perf_counter())
+    fleet_checkpoint(torch, card, est)
+    marks.append(time.perf_counter())
+    print(f"[fleet] seconds: problems {marks[0] - t_phase:.1f}, solve {marks[1] - marks[0]:.1f}, frontend "
+          f"{marks[2] - marks[1]:.1f}, marginalization and INS {marks[3] - marks[2]:.1f}, checkpoint "
+          f"{marks[4] - marks[3]:.1f}; phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1767,7 +2219,7 @@ def main():
 
     # ---- phase 6: the GNSS/INS replay, and its odometer run -----------------
     t_mark = time.perf_counter()
-    gins_phase(torch, card)
+    gins_model = gins_phase(torch, card)
     phase_s[6] = time.perf_counter() - t_mark
 
     # ---- phase 7: the GNSS-visual-inertial replay --------------------------
@@ -1779,10 +2231,16 @@ def main():
     t_mark = time.perf_counter()
     long_launches = long_phase(torch, card, wrappers)
     phase_s[8] = time.perf_counter() - t_mark
+
+    # ---- phase 9: the batched forms of parallel/mesh.py, the checkpoint ----
+    t_mark = time.perf_counter()
+    fleet_launches = fleet_phase(torch, card, wrappers, images, gins_model.est)
+    phase_s[9] = time.perf_counter() - t_mark
     for k in records:
         records[k]["launches_by_path"] = {"frontend_slice": records[k]["launches"],
                                           "gvins_replay": int(replay_launches[k]),
-                                          "long_fault_replay": int(long_launches[k])}
+                                          "long_fault_replay": int(long_launches[k]),
+                                          "fleet_frontend": int(fleet_launches[k])}
         records[k]["launches"] = int(long_launches[k])
     print(f"[phases] seconds by phase {json.dumps({str(k): round(v, 1) for k, v in sorted(phase_s.items())})}, "
           f"total {time.perf_counter() - t_start:.1f} s")

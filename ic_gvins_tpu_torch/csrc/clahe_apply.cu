@@ -35,6 +35,13 @@
 // the plain version's order and its separate rounding of every product and
 // sum (the zero weights it skips add +0), so the result equals
 // ops/clahe.py:clahe_apply_plain.
+//
+// World axis: B independent images (the JAX package's vmap over worlds)
+// run in one launch, world z = blockIdx.z reading its image at z * H * W
+// and its tables at z * ty * tx * 256. An unbatched call is B = 1; the
+// offsets are compiled in only where B > 1 (WORLDS): applied in every call,
+// as pointer offsets or folded into the row and tile indices, they slowed
+// the unbatched call by about a sixth on the H100.
 #include "common.cuh"
 
 namespace {
@@ -73,7 +80,7 @@ __device__ __forceinline__ float lut_at(const unsigned short* lut, int tile, int
     return __uint_as_float(static_cast<unsigned>(__ldg(lut + tile * NBINS + val)) << 16);
 }
 
-template <int VEC>
+template <int VEC, bool WORLDS>
 __global__ void __launch_bounds__(THREADS)
 clahe_apply_kernel(const int32_t* __restrict__ v, const unsigned short* __restrict__ lut,
                    float* __restrict__ out, int H, int W, int ty, int tx, int th, int tw,
@@ -81,6 +88,12 @@ clahe_apply_kernel(const int32_t* __restrict__ v, const unsigned short* __restri
     const int x = (blockIdx.x * THREADS + threadIdx.x) * VEC;
     const int y0 = blockIdx.y * ROWS;
     if (x >= W) return;
+    if constexpr (WORLDS) {  // this world's image and tables
+        const size_t world = blockIdx.z;
+        v += world * H * W;
+        out += world * H * W;
+        lut += world * ty * tx * NBINS;
+    }
 
     // rows past H are loaded (as row H - 1) and looked up, never stored
     int val[ROWS][VEC];
@@ -144,22 +157,33 @@ clahe_apply_kernel(const int32_t* __restrict__ v, const unsigned short* __restri
 // transfer functions; out: (H, W) f32. Tiles are th x tw pixels on a
 // ty x tx grid; hi_y / hi_x are f32(ty - 1.000001) / f32(tx - 1.000001).
 // vec = 2 needs W even and v, out 8-byte aligned; vec = 1 takes any W.
+// With B > 1, v and out are (B, H, W) and lut (B, ty*tx, 256): one launch.
 extern "C" int clahe_apply(const void* v, const void* lut, void* out, int H, int W, int ty,
-                           int tx, int th, int tw, float hi_y, float hi_x, int vec, void* stream) {
+                           int tx, int th, int tw, float hi_y, float hi_x, int vec, int B,
+                           void* stream) {
+    if (B == 0) return 0;
     const auto s = static_cast<cudaStream_t>(stream);
     const auto* vp = static_cast<const int32_t*>(v);
     const auto* lp = static_cast<const unsigned short*>(lut);
     auto* op = static_cast<float*>(out);
-    const dim3 grid_rows(1, (H + ROWS - 1) / ROWS);
+    const dim3 grid_rows(1, (H + ROWS - 1) / ROWS, B);
     if (vec == 2) {
         if (W % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
-        const dim3 grid((W / 2 + THREADS - 1) / THREADS, grid_rows.y);
-        clahe_apply_kernel<2><<<grid, THREADS, 0, s>>>(vp, lp, op, H, W, ty, tx, th, tw, hi_y,
-                                                       hi_x);
+        const dim3 grid((W / 2 + THREADS - 1) / THREADS, grid_rows.y, grid_rows.z);
+        if (B > 1)
+            clahe_apply_kernel<2, true><<<grid, THREADS, 0, s>>>(vp, lp, op, H, W, ty, tx, th, tw,
+                                                                 hi_y, hi_x);
+        else
+            clahe_apply_kernel<2, false><<<grid, THREADS, 0, s>>>(vp, lp, op, H, W, ty, tx, th, tw,
+                                                                  hi_y, hi_x);
     } else {
-        const dim3 grid((W + THREADS - 1) / THREADS, grid_rows.y);
-        clahe_apply_kernel<1><<<grid, THREADS, 0, s>>>(vp, lp, op, H, W, ty, tx, th, tw, hi_y,
-                                                       hi_x);
+        const dim3 grid((W + THREADS - 1) / THREADS, grid_rows.y, grid_rows.z);
+        if (B > 1)
+            clahe_apply_kernel<1, true><<<grid, THREADS, 0, s>>>(vp, lp, op, H, W, ty, tx, th, tw,
+                                                                 hi_y, hi_x);
+        else
+            clahe_apply_kernel<1, false><<<grid, THREADS, 0, s>>>(vp, lp, op, H, W, ty, tx, th, tw,
+                                                                  hi_y, hi_x);
     }
     return static_cast<int>(cudaGetLastError());
 }

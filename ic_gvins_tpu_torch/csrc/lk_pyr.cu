@@ -54,6 +54,12 @@
 // branches and exits together. Slots that are not valid write their
 // (unmoved) guess at once. The host launches nothing between levels or
 // directions.
+//
+// World axis: B independent frames (the JAX package's vmap over worlds,
+// parallel/mesh.py:sharded_frontend) run in one launch on an (N, B) grid;
+// world b reads level l at lvl[l] + b * H_l * W_l of a (B, H_l, W_l) stack
+// and its slots at b * N. An unbatched call is B = 1. The level pointers
+// stay as the launch passed them: each level call offsets its own two.
 #include "common.cuh"
 
 namespace {
@@ -129,6 +135,9 @@ __device__ bool track_level(const float* __restrict__ prev, const float* __restr
     const int tid = threadIdx.x;
     const int Hp = H + 2 * PAD, Wp = W + 2 * PAD;
     float x = gx_out + PAD, y = gy_out + PAD;
+    // the level of this block's world: one (H, W) image of a (B, H, W) stack
+    prev += static_cast<size_t>(blockIdx.y) * H * W;
+    next += static_cast<size_t>(blockIdx.y) * H * W;
 
     // stage the template's raw slice and the next image around the guess
     const float tx = px + PAD, ty = py + PAD;
@@ -253,9 +262,9 @@ lk_pyr_kernel(Pyramid prev, Pyramid next, int H, int W, int levels,
               const float* __restrict__ pts_prev, const float* __restrict__ pts_pred,
               const uint8_t* __restrict__ valid, int directions, float fb_threshold, int border,
               float* __restrict__ fwd_out, uint8_t* __restrict__ ok_out,
-              int* __restrict__ iters_out) {
+              int* __restrict__ iters_out, int N) {
     __shared__ Shared sh;
-    const int f = blockIdx.x;
+    const int f = blockIdx.y * N + blockIdx.x;  // world blockIdx.y, slot blockIdx.x
     int Hs[MAX_LEVELS], Ws[MAX_LEVELS];
     Hs[0] = H;
     Ws[0] = W;
@@ -298,22 +307,25 @@ lk_pyr_kernel(Pyramid prev, Pyramid next, int H, int W, int levels,
 // pointers past `levels` are unused. pts_prev, pts_pred: (N, 2) f32 xy in
 // level-0 pixels; valid: (N,) u8. Writes fwd (N, 2) f32 and ok (N,) u8, and,
 // when iters_out is not null, each slot's number of LK steps (N,) i32.
+// With B > 1 every array gains a leading world axis of B (levels
+// (B, H_l, W_l), points (B, N, 2), ...), all in one launch.
 extern "C" int lk_pyr(const void* prev0, const void* prev1, const void* prev2, const void* prev3,
                       const void* next0, const void* next1, const void* next2, const void* next3,
                       int H, int W, int levels, const void* pts_prev, const void* pts_pred,
                       const void* valid, int directions, float fb_threshold, int border,
-                      void* fwd_out, void* ok_out, void* iters_out, int N, void* stream) {
-    if (N == 0) return 0;
+                      void* fwd_out, void* ok_out, void* iters_out, int N, int B,
+                      void* stream) {
+    if (N == 0 || B == 0) return 0;
     if (levels < 1 || levels > MAX_LEVELS || (directions != 1 && directions != 2))
         return static_cast<int>(cudaErrorInvalidValue);
     const Pyramid prev{{static_cast<const float*>(prev0), static_cast<const float*>(prev1),
                         static_cast<const float*>(prev2), static_cast<const float*>(prev3)}};
     const Pyramid next{{static_cast<const float*>(next0), static_cast<const float*>(next1),
                         static_cast<const float*>(next2), static_cast<const float*>(next3)}};
-    lk_pyr_kernel<<<N, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+    lk_pyr_kernel<<<dim3(N, B), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         prev, next, H, W, levels, static_cast<const float*>(pts_prev),
         static_cast<const float*>(pts_pred), static_cast<const uint8_t*>(valid), directions,
         fb_threshold, border, static_cast<float*>(fwd_out), static_cast<uint8_t*>(ok_out),
-        static_cast<int*>(iters_out));
+        static_cast<int*>(iters_out), N);
     return static_cast<int>(cudaGetLastError());
 }

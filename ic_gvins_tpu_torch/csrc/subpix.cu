@@ -44,6 +44,10 @@
 // squared norm, and the next step's slice origin and weights are computed
 // while it resolves. Every thread reads the same totals, takes the same
 // step and the same stop decision, so the block leaves together.
+//
+// World axis: B independent images (the JAX package's vmap over worlds)
+// run in one launch on an (N, B) grid; world b reads its image at
+// b * H * W and its corners at b * N. An unbatched call is B = 1.
 #include "common.cuh"
 
 namespace {
@@ -122,10 +126,11 @@ __device__ __forceinline__ void block_sums(float (&v)[NSUM], Shared& sh, int& bu
 __global__ void __launch_bounds__(THREADS)
 subpix_kernel(const float* __restrict__ img, int H, int W, const float* __restrict__ pts,
               const uint8_t* __restrict__ valid, float* __restrict__ out,
-              int* __restrict__ iters_out) {
+              int* __restrict__ iters_out, int N) {
     __shared__ Shared sh;
-    const int c = blockIdx.x;
+    const int c = blockIdx.y * N + blockIdx.x;  // world blockIdx.y, corner blockIdx.x
     const int tid = threadIdx.x;
+    img += static_cast<size_t>(blockIdx.y) * H * W;
     const float cx = pts[2 * c], cy = pts[2 * c + 1];
     float x = cx, y = cy;
     int iters = 0;
@@ -230,14 +235,15 @@ subpix_kernel(const float* __restrict__ img, int H, int W, const float* __restri
 
 // img: (H, W) f32 with H, W >= 14; pts: (N, 2) f32 xy; valid: (N,) u8;
 // out: (N, 2) f32; when iters_out is not null, each corner's number of
-// steps (N,) i32.
+// steps (N,) i32. With B > 1 every array gains a leading world axis of B
+// (img (B, H, W), pts (B, N, 2), ...), all in one launch.
 extern "C" int subpix(const void* img, int H, int W, const void* pts, const void* valid, void* out,
-                      void* iters_out, int N, void* stream) {
-    if (N == 0) return 0;
+                      void* iters_out, int N, int B, void* stream) {
+    if (N == 0 || B == 0) return 0;
     if (H < SLICE || W < SLICE) return static_cast<int>(cudaErrorInvalidValue);
-    subpix_kernel<<<N, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+    subpix_kernel<<<dim3(N, B), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(img), H, W, static_cast<const float*>(pts),
         static_cast<const uint8_t*>(valid), static_cast<float*>(out),
-        static_cast<int*>(iters_out));
+        static_cast<int*>(iters_out), N);
     return static_cast<int>(cudaGetLastError());
 }

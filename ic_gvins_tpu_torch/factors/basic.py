@@ -72,7 +72,7 @@ def pose_prior_residual(pose, pose_prior, std6):
 def pose_prior_jacobian(pose, pose_prior, std6):
     """(6, 6) local jacobian (imu_pose_prior_factor.h:57-65)."""
     dq = quat.mul(quat.conj(pose[..., 3:7]), pose_prior[..., 3:7])
-    J = torch.zeros(pose.shape[:-1] + (6, 6), dtype=pose.dtype, device=pose.device)
+    J = pose.new_zeros(pose.shape[:-1] + (6, 6))
     J[..., 0:3, 0:3] = _eye(3, pose)
     J[..., 3:6, 3:6] = -quat.right33(dq)
     return J / std6[..., :, None]

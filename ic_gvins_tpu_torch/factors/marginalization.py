@@ -249,6 +249,6 @@ def select_marg_factors(tables: FactorTables, cfg: WindowConfig, num_marg: int, 
     dev = t.gnss.valid.device
     node_m = (torch.arange(cfg.N, device=dev) < num_marg).to(f64)
     ref_is_old = ((r.ref_idx == oldest_kf_node) & (r.valid > 0)).to(f64)
-    lm_m = torch.zeros(cfg.L, dtype=f64, device=dev).scatter_reduce_(0, r.lm_idx, ref_is_old, reduce="amax")
+    lm_m = torch.zeros(cfg.L, dtype=f64, device=dev).scatter_reduce(0, r.lm_idx, ref_is_old, reduce="amax")
     mask = torch.cat([node_m.repeat_interleave(cfg.node_dim), F.pad(lm_m, (POSE_LOCAL + 1, 0))])
     return marg_tables, mask, lm_m

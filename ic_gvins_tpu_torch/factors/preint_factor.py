@@ -76,12 +76,12 @@ def jacobians(summ, pose0, mix0, pose1, mix1, *, with_earth: bool):
     dpn, dvn, qb0b1 = _deltas(summ, pose0, mix0, pose1, mix1, with_earth)
     cnb0 = quat.to_matrix(quat.conj(q0))
     I3 = torch.eye(3, dtype=q0.dtype, device=q0.device)
-    f = dict(dtype=q0.dtype, device=q0.device)
     batch = q0.shape[:-1]
-    Jp0 = torch.zeros(batch + (NUM_RES, 6), **f)
-    Jm0 = torch.zeros(batch + (NUM_RES, 9), **f)
-    Jp1 = torch.zeros(batch + (NUM_RES, 6), **f)
-    Jm1 = torch.zeros(batch + (NUM_RES, 9), **f)
+    # new_zeros: batched like q0 under torch.func.vmap, so the writes below stay legal there
+    Jp0 = q0.new_zeros(batch + (NUM_RES, 6))
+    Jm0 = q0.new_zeros(batch + (NUM_RES, 9))
+    Jp1 = q0.new_zeros(batch + (NUM_RES, 6))
+    Jm1 = q0.new_zeros(batch + (NUM_RES, 9))
 
     Jp0[..., 0:3, 3:6] = quat.skew(_mv(cnb0, dpn))
     Jp0[..., 3:6, 3:6] = quat.skew(_mv(cnb0, dvn))

@@ -22,8 +22,8 @@ class MechConfig(NamedTuple):
     """Mechanization configuration (IntegrationConfiguration,
     integration_state.h:91-99); ``iswithearth`` is a Python bool."""
 
-    gravity: torch.Tensor   # (3,) n-frame gravity vector [0, 0, g]
-    iewn: torch.Tensor      # (3,) earth rotation rate in n-frame
+    gravity: torch.Tensor   # (3,) n-frame gravity vector [0, 0, g]; (..., 3) per world
+    iewn: torch.Tensor      # (3,) earth rotation rate in n-frame; (..., 3) per world
     iswithearth: bool = True
 
 
@@ -81,7 +81,9 @@ def mechanize_scan(config: MechConfig, state: NavState, imu: ImuBatch, imu_prev=
 
     imu_prev: the sample immediately before imu[0] (dual-sample cross terms),
     zeros by default. Returns (final NavState, per-sample (p, q, v) of shape
-    (..., S, k)); padded samples replicate the running state. Quaternion
+    (..., S, k)); padded samples replicate the running state. With leading
+    world dims, ``config.gravity`` and ``config.iewn`` may carry them too
+    (each world its own gravity and earth rate). Quaternion
     prefix products carry the attitude, an affine (Coriolis) prefix the
     velocity, cumsums the position (misc.cc:151-206)."""
     _, pth, pdv = _prev0(state, imu_prev)
@@ -94,21 +96,22 @@ def mechanize_scan(config: MechConfig, state: NavState, imu: ImuBatch, imu_prev=
                                      pscan.shift_prev(dvl, pdv, ax))
     dqs = quat.from_rotvec(dtheta)
     q0 = state.q.unsqueeze(ax)
+    gravity, iewn = config.gravity.unsqueeze(-2), config.iewn.unsqueeze(-2)   # over the sample axis
 
     if config.iswithearth:
-        qnn = quat.from_rotvec(-config.iewn * dt3)
+        qnn = quat.from_rotvec(-iewn * dt3)
         L, R = pscan.quat_sandwich_prefix(qnn, dqs, ax)
         q_all = quat.normalize(quat.mul(quat.mul(L, q0), R))
         rot = quat.rotate(pscan.shift_prev(q_all, state.q, ax), dvfb)
         # v_k = (I - 2 dt [iewn]x) v_{k-1} + c_k  (Coriolis affine map)
-        c = 0.5 * (rot + (quat.to_matrix(qnn) @ rot[..., None])[..., 0]) + config.gravity * dt3
+        c = 0.5 * (rot + (quat.to_matrix(qnn) @ rot[..., None])[..., 0]) + gravity * dt3
         eye = torch.eye(3, dtype=dt.dtype, device=dt.device)
-        A = eye - 2.0 * dt[..., None, None] * quat.skew(config.iewn)
+        A = eye - 2.0 * dt[..., None, None] * quat.skew(iewn)
         P, cpf = pscan.affine_prefix(A, c, ax)
         v_all = (P @ state.v.unsqueeze(ax)[..., None])[..., 0] + cpf
     else:
         q_all = quat.normalize(quat.mul(q0, pscan.quat_prefix(dqs, ax)))
-        dvel = quat.rotate(pscan.shift_prev(q_all, state.q, ax), dvfb) + config.gravity * dt3
+        dvel = quat.rotate(pscan.shift_prev(q_all, state.q, ax), dvfb) + gravity * dt3
         v_all = state.v.unsqueeze(ax) + torch.cumsum(dvel, dim=ax)
 
     v_prev = pscan.shift_prev(v_all, state.v, ax)

@@ -10,7 +10,9 @@ when the package is imported: the first kernel launch builds. A missing
 
 Every entry point has a plain C interface: device pointers and the CUDA
 stream as ``c_void_p``, sizes as ``c_int``, and a returned ``cudaError_t``
-(0 on success) that ``launch`` turns into an exception.
+(0 on success) that ``launch`` turns into an exception. Each takes a world
+count B last before the stream: B independent inputs stacked on a leading
+axis run in one launch (B = 1 for an unbatched call).
 """
 
 import ctypes
@@ -31,9 +33,9 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # entry point -> argument types (pointers, sizes, then the stream)
 SIGNATURES = {
-    "clahe_apply": [_P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I, _P],
-    "lk_pyr": [_P] * 8 + [_I, _I, _I, _P, _P, _P, _I, ctypes.c_float, _I, _P, _P, _P, _I, _P],
-    "subpix": [_P, _I, _I, _P, _P, _P, _P, _I, _P],
+    "clahe_apply": [_P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I, _I, _P],
+    "lk_pyr": [_P] * 8 + [_I, _I, _I, _P, _P, _P, _I, ctypes.c_float, _I, _P, _P, _P, _I, _I, _P],
+    "subpix": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P],
 }
 
 _lib = None

@@ -41,44 +41,51 @@ def offset_weights(n, tn, tsize, device):
 def clahe_apply_plain(v, lut, grid, tile):
     """v: (H, W) i32 gray values (clamped to [0, 255], as the kernel does);
     lut: (ty*tx, 256) bf16; grid = (ty, tx) tiles of tile = (th, tw)
-    pixels. Returns (H, W) f32."""
-    H, W = v.shape
+    pixels. Returns (H, W) f32. With a leading world axis, v (B, H, W) and
+    lut (B, ty*tx, 256) give (B, H, W)."""
+    H, W = v.shape[-2:]
+    lead = v.shape[:-2]
     (ty, tx), (th, tw) = grid, tile
     dev = v.device
     wr = offset_weights(H, ty, th, dev)
     wc = offset_weights(W, tx, tw, dev)
     ti = torch.arange(H, device=dev) // th
     tj = torch.arange(W, device=dev) // tw
-    flat = lut.float().reshape(-1)
+    flat = lut.float().reshape(lead + (-1,))
     vl = v.long().clamp(0, 255)
-    out = torch.zeros((H, W), dtype=torch.float32, device=dev)
+    out = torch.zeros(lead + (H, W), dtype=torch.float32, device=dev)
     for dy in range(3):
         ni = torch.clamp(ti + dy - 1, 0, ty - 1)
         for dx in range(3):
             nj = torch.clamp(tj + dx - 1, 0, tx - 1)
-            vals = flat[(ni[:, None] * tx + nj[None, :]) * 256 + vl]
+            idx = (ni[:, None] * tx + nj[None, :]) * 256 + vl
+            vals = torch.gather(flat, -1, idx.reshape(lead + (-1,))).reshape(idx.shape)
             out = out + (wr[:, dy, None] * wc[None, :, dx]) * vals
     return out
 
 
 def clahe_apply(v, lut, grid, tile):
-    """Kernel K3 wrapper. CPU tensors take ``clahe_apply_plain``; CUDA tensors
-    launch ``csrc/clahe_apply.cu`` (or raise)."""
+    """Kernel K3 wrapper, the arguments of ``clahe_apply_plain`` (a leading
+    world axis included: one launch for all worlds). CPU tensors take
+    ``clahe_apply_plain``; CUDA tensors launch ``csrc/clahe_apply.cu`` (or
+    raise)."""
     if v.device.type == "cpu":
         return clahe_apply_plain(v, lut, grid, tile)
     (ty, tx), (th, tw) = grid, tile
-    H, W = v.shape
+    H, W = v.shape[-2:]
+    lead = v.shape[:-2]
     if v.dtype != torch.int32 or lut.dtype != torch.bfloat16:
         raise TypeError("clahe_apply: v must be int32 and lut bfloat16")
-    if tuple(lut.shape) != (ty * tx, 256) or H > ty * th or W > tx * tw:
+    if v.dim() not in (2, 3) or tuple(lut.shape) != lead + (ty * tx, 256) or H > ty * th or W > tx * tw:
         raise ValueError("clahe_apply: lut / tile grid do not cover the image")
     _build.require_cuda("clahe_apply", v, lut)
-    out = torch.empty((H, W), dtype=torch.float32, device=v.device)
+    out = torch.empty(lead + (H, W), dtype=torch.float32, device=v.device)
     # two columns a thread (8-byte accesses) where every row stays 8-byte aligned
     vec = 2 if W % 2 == 0 and v.data_ptr() % 8 == 0 and out.data_ptr() % 8 == 0 else 1
     _build.launch("clahe_apply", v.data_ptr(), lut.data_ptr(), out.data_ptr(), H, W,
                   ty, tx, th, tw, float(np.float32(ty - 1.000001)),
-                  float(np.float32(tx - 1.000001)), vec, _build.stream_ptr(v))
+                  float(np.float32(tx - 1.000001)), vec, v.shape[0] if lead else 1,
+                  _build.stream_ptr(v))
     clahe_apply.launches += 1
     return out
 

@@ -9,7 +9,7 @@ table in batched tensor ops, in float64 throughout (the JAX package's f32
 reprojection path is a TPU choice; its ``precise=True`` mode is the f64 one
 this port follows).
 
-The normal equations are assembled with ``index_add_``: each factor's
+The normal equations are assembled with ``index_add``: each factor's
 (node, node) blocks land in an (N*N, ND, ND) block tensor by the flat index
 i*N + j of its node pair, its gradient in an (N, ND) tensor by node. The
 JAX package's one-hot contractions and mask band embeds are TPU lowering
@@ -22,6 +22,14 @@ wheel odometer):
   ext:    [N*ND, N*ND+6)  camera-IMU extrinsic pose tangent
   td:     N*ND+6          camera-IMU time delay
   lm j:   N*ND+7+j        inverse depth
+
+Every function of one problem here has a batched form over a leading axis
+of B independent problems, ``over_problems(fn, cfg)`` (``torch.func.vmap``
+with the static config held fixed): the counterpart of the JAX package's
+``jax.vmap`` in ``parallel/mesh.py``. B problems then share one stream of
+ops. The assembly scatters out of place (``index_add``, never
+``index_add_`` into a fresh tensor) and the jacobians' buffers come from
+``new_zeros`` of an input, which is what vmap needs to batch them.
 """
 
 from typing import NamedTuple
@@ -91,6 +99,16 @@ class WindowConfig(NamedTuple):
     @property
     def D(self):
         return self.lm_off + self.L
+
+
+def over_problems(fn, *static):
+    """``fn(*tensors, *static)`` over a leading axis of problems: every
+    tensor leaf of the arguments and of the result gains that axis, the
+    trailing ``static`` arguments (a WindowConfig, ...) are shared. The
+    batched forms of build_normal_blocks, apply_gauge_blocks, block_matvec,
+    total_cost and chi2_blocks, and of ``WindowParams.boxplus`` through a
+    function that calls it."""
+    return torch.func.vmap(lambda *tensors: fn(*tensors, *static))
 
 
 def _z(*shape, device=None):
@@ -480,15 +498,15 @@ def build_normal_blocks(params, tables: FactorTables, cfg: WindowConfig):
              _pad_block(AB.transpose(-1, -2), ND)]
     gidx += [ref, obs]
     gvec += [F.pad(gr[:, A], (0, ND - 6)), F.pad(gr[:, B], (0, ND - 6))]
-    Hcross = torch.zeros((N, 6, 7), dtype=F64, device=dev).index_add_(
+    Hcross = torch.zeros((N, 6, 7), dtype=F64, device=dev).index_add(
         0, torch.cat([ref, obs]), torch.cat([Pr[:, A, C], Pr[:, B, C]]))
     Htail = torch.sum(Pr[:, C, C], dim=0)
-    Hsl_nodes = torch.zeros((N * L, 6), dtype=F64, device=dev).index_add_(
+    Hsl_nodes = torch.zeros((N * L, 6), dtype=F64, device=dev).index_add(
         0, torch.cat([ref * L + lm, obs * L + lm]), torch.cat([Pr[:, A, LM], Pr[:, B, LM]]))
-    Hsl_tail = torch.zeros((L, 7), dtype=F64, device=dev).index_add_(0, lm, Pr[:, C, LM])
-    hll = torch.zeros(L, dtype=F64, device=dev).index_add_(0, lm, Pr[:, LM, LM])
+    Hsl_tail = torch.zeros((L, 7), dtype=F64, device=dev).index_add(0, lm, Pr[:, C, LM])
+    hll = torch.zeros(L, dtype=F64, device=dev).index_add(0, lm, Pr[:, LM, LM])
     b_tail = -torch.sum(gr[:, C], dim=0)
-    b_lm = -torch.zeros(L, dtype=F64, device=dev).index_add_(0, lm, gr[:, LM])
+    b_lm = -torch.zeros(L, dtype=F64, device=dev).index_add(0, lm, gr[:, LM])
 
     # ---- imu error factor on the newest mix ----
     pr = tables.prior
@@ -513,13 +531,13 @@ def build_normal_blocks(params, tables: FactorTables, cfg: WindowConfig):
     gvec.append(torch.cat([Jpp.T @ rpp, Jmp.T @ rmp])[None] * pr.valid)
 
     # ---- scatter, then the block form by concatenation ----
-    Hb = torch.zeros((N * N, ND, ND), dtype=F64, device=dev).index_add_(0, torch.cat(hidx), torch.cat(hblk))
+    Hb = torch.zeros((N * N, ND, ND), dtype=F64, device=dev).index_add(0, torch.cat(hidx), torch.cat(hblk))
     Hn = Hb.reshape(N, N, ND, ND).permute(0, 2, 1, 3).reshape(N * ND, N * ND)
     Hc = F.pad(Hcross, (0, 0, 0, ND - 6)).reshape(N * ND, 7)
     Hss = torch.cat([torch.cat([Hn, Hc], dim=1), torch.cat([Hc.T, Htail], dim=1)], dim=0)
     Hsl = torch.cat([F.pad(Hsl_nodes.reshape(N, L, 6).permute(0, 2, 1), (0, 0, 0, ND - 6)).reshape(N * ND, L),
                      Hsl_tail.T], dim=0)
-    gn = torch.zeros((N, ND), dtype=F64, device=dev).index_add_(0, torch.cat(gidx), torch.cat(gvec))
+    gn = torch.zeros((N, ND), dtype=F64, device=dev).index_add(0, torch.cat(gidx), torch.cat(gvec))
     b = torch.cat([-gn.reshape(-1), b_tail, b_lm])
 
     # ---- marginalization prior (exact tangent chaining; landmark-free,

@@ -8,7 +8,9 @@ feature mask as a max-pooled occupancy image. Output is a fixed-size padded
 corner table with a validity mask. Subpixel refinement is kernel K2
 (``ops/subpix.py``). The elementwise arithmetic follows the reference's
 operation order, so on the same f32 image the responses and corner tables
-agree exactly.
+agree exactly. ``occupancy_mask``, ``detect_blockwise`` and
+``corner_subpix`` also take a leading world axis (B images, the JAX
+package's vmap over worlds in ``parallel/mesh.py``).
 """
 
 import torch
@@ -23,10 +25,10 @@ def _sobel(img):
     img = img.to(torch.float32)
     p = _edge_pad(img, 1, 1, 1, 1)
     # separable: d = [-1,0,1], s = [1,2,1]
-    dx = p[:, 2:] - p[:, :-2]
-    gx = dx[:-2, :] + 2.0 * dx[1:-1, :] + dx[2:, :]
-    dy = p[2:, :] - p[:-2, :]
-    gy = dy[:, :-2] + 2.0 * dy[:, 1:-1] + dy[:, 2:]
+    dx = p[..., 2:] - p[..., :-2]
+    gx = dx[..., :-2, :] + 2.0 * dx[..., 1:-1, :] + dx[..., 2:, :]
+    dy = p[..., 2:, :] - p[..., :-2, :]
+    gy = dy[..., :-2] + 2.0 * dy[..., 1:-1] + dy[..., 2:]
     return gx, gy
 
 
@@ -42,7 +44,7 @@ def min_eig_response(img, block_size=3):
         out = torch.zeros_like(a)
         for i in range(block_size):
             for j in range(block_size):
-                out = out + p[i : i + a.shape[0], j : j + a.shape[1]]
+                out = out + p[..., i : i + a.shape[-2], j : j + a.shape[-1]]
         return out / (block_size * block_size)
 
     sxx, syy, sxy = box(xx), box(yy), box(xy)
@@ -53,9 +55,10 @@ def min_eig_response(img, block_size=3):
 
 
 def _max_filter(a, k):
-    """Separable k x k max filter with -inf padding ("SAME", k odd)."""
-    a = F.max_pool2d(a[None, None], (k, 1), stride=1, padding=(k // 2, 0))
-    return F.max_pool2d(a, (1, k), stride=1, padding=(0, k // 2))[0, 0]
+    """Separable k x k max filter with -inf padding ("SAME", k odd) over
+    the last two axes."""
+    a = F.max_pool2d(a.unsqueeze(-3), (k, 1), stride=1, padding=(k // 2, 0))
+    return F.max_pool2d(a, (1, k), stride=1, padding=(0, k // 2)).squeeze(-3)
 
 
 def occupancy_mask(points_xy, valid, shape, radius):
@@ -64,11 +67,12 @@ def occupancy_mask(points_xy, valid, shape, radius):
     approximated by squares of the same radius)."""
     H, W = shape
     dev = points_xy.device
-    xi = torch.clamp(points_xy[:, 0].to(torch.int32), 0, W - 1).long()
-    yi = torch.clamp(points_xy[:, 1].to(torch.int32), 0, H - 1).long()
-    occ = torch.zeros(H * W, dtype=torch.float32, device=dev)
-    occ = occ.scatter_reduce(0, yi * W + xi, valid.to(torch.float32), "amax")
-    occ = _max_filter(occ.reshape(H, W), int(2 * radius + 1))
+    lead = points_xy.shape[:-2]
+    xi = torch.clamp(points_xy[..., 0].to(torch.int32), 0, W - 1).long()
+    yi = torch.clamp(points_xy[..., 1].to(torch.int32), 0, H - 1).long()
+    occ = torch.zeros(lead + (H * W,), dtype=torch.float32, device=dev)
+    occ = occ.scatter_reduce(-1, yi * W + xi, valid.to(torch.float32), "amax")
+    occ = _max_filter(occ.reshape(lead + (H, W)), int(2 * radius + 1))
     return 1.0 - torch.clamp(occ, min=0.0)
 
 
@@ -82,8 +86,10 @@ def detect_blockwise(img, mask, block_counts, *, block_rows, block_cols, per_blo
 
     Returns (corners (B*per_block, 2) f32 xy, response, valid) padded tables.
     Parity: per-block quality gate at 0.01 * block max, NMS at min_distance,
-    5-px borders between blocks (tracking.cc:639-642)."""
-    H, W = img.shape
+    5-px borders between blocks (tracking.cc:639-642). With a leading
+    world axis on img, mask and block_counts, every table gains it."""
+    H, W = img.shape[-2:]
+    lead = img.shape[:-2]
     dev = img.device
     bh, bw = H // block_rows, W // block_cols
 
@@ -102,30 +108,29 @@ def detect_blockwise(img, mask, block_counts, *, block_rows, block_cols, per_blo
     resp_m = torch.where(is_max & inb & (mask > 0), resp, torch.zeros_like(resp))
 
     # crop to whole blocks, reshape to (B, bh*bw)
-    crop = resp_m[: block_rows * bh, : block_cols * bw]
-    blocks = crop.reshape(block_rows, bh, block_cols, bw).permute(0, 2, 1, 3)
-    blocks = blocks.reshape(block_rows * block_cols, bh * bw)
+    crop = resp_m[..., : block_rows * bh, : block_cols * bw]
+    blocks = crop.reshape(lead + (block_rows, bh, block_cols, bw)).transpose(-3, -2)
+    blocks = blocks.reshape(lead + (block_rows * block_cols, bh * bw))
 
     # per-block quality gate
-    bmax = torch.amax(blocks, dim=1, keepdim=True)
+    bmax = torch.amax(blocks, dim=-1, keepdim=True)
     blocks = torch.where(blocks >= quality_level * bmax, blocks, torch.zeros_like(blocks))
 
     # top-k by per_block rounds of (max, first argmax, knock out)
-    rows = torch.arange(blocks.shape[0], device=dev)
     vals, idxs = [], []
     work = blocks.clone()
     for _ in range(per_block):
-        v, i = torch.max(work, dim=1)
+        v, i = torch.max(work, dim=-1)
         vals.append(v)
         idxs.append(i)
-        work[rows, i] = 0.0
-    top_val = torch.stack(vals, dim=1)
-    top_idx = torch.stack(idxs, dim=1)
+        work.scatter_(-1, i[..., None], 0.0)
+    top_val = torch.stack(vals, dim=-1)
+    top_idx = torch.stack(idxs, dim=-1)
 
     # slot budget per block: per_block - existing features
     budget = torch.clamp(per_block - block_counts.to(dev).long(), min=0)
-    rank = torch.arange(per_block, device=dev)[None, :]
-    valid = (top_val > 0) & (rank < budget[:, None])
+    rank = torch.arange(per_block, device=dev)
+    valid = (top_val > 0) & (rank < budget[..., None])
 
     by = top_idx // bw
     bx = top_idx % bw
@@ -135,12 +140,13 @@ def detect_blockwise(img, mask, block_counts, *, block_rows, block_cols, per_blo
     x = (bcol * bw + bx).to(torch.float32)
     y = (brow * bh + by).to(torch.float32)
 
-    corners = torch.stack([x.reshape(-1), y.reshape(-1)], dim=-1)
-    return corners, top_val.reshape(-1), valid.reshape(-1)
+    flat = lead + (-1,)
+    corners = torch.stack([x.reshape(flat), y.reshape(flat)], dim=-1)
+    return corners, top_val.reshape(flat), valid.reshape(flat)
 
 
 def corner_subpix(img, corners, valid):
     """Subpixel refinement (cv::cornerSubPix, 11x11 window, 20 iterations,
-    eps 0.01): kernel K2."""
+    eps 0.01): kernel K2, one launch for all worlds."""
     return subpix(img.to(torch.float32).contiguous(), corners.to(torch.float32).contiguous(),
                   valid.contiguous())

@@ -9,6 +9,10 @@ lowerings; this module computes the same functions directly: a per-tile
 ``bincount`` histogram, and the 5-tap blur as shifted-slice multiply-adds
 (no ``conv2d``, so no cuDNN TF32 path). The CLAHE apply is kernel K3
 (``ops/clahe.py``).
+
+``_edge_pad``, ``pyr_down``, ``build_pyramid``, ``extract_patch``,
+``clahe_tables`` and ``clahe`` also take a leading world axis (B images,
+the JAX package's vmap over worlds in ``parallel/mesh.py``).
 """
 
 import torch
@@ -20,26 +24,26 @@ _PYR_K = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
 
 
 def _edge_pad(img, top, bottom, left, right):
-    """Edge (replicate) padding of a 2-D tensor by index clamping."""
-    H, W = img.shape
+    """Edge (replicate) padding of the last two axes by index clamping."""
+    H, W = img.shape[-2:]
     rows = torch.arange(-top, H + bottom, device=img.device).clamp(0, H - 1)
     cols = torch.arange(-left, W + right, device=img.device).clamp(0, W - 1)
-    return img[rows][:, cols]
+    return img[..., rows, :][..., cols]
 
 
 def pyr_down(img):
     """One pyramid level down: 5-tap Gaussian (separable, edge-padded) + 2x
     decimation. out[i] = sum_k K[k] * padded[2i + k] per axis, rows first."""
     img = img.to(torch.float32)
-    H, W = img.shape
+    H, W = img.shape[-2:]
     H2, W2 = (H - 1) // 2 + 1, (W - 1) // 2 + 1
     p = _edge_pad(img, 2, 2, 2, 2)
-    v = _PYR_K[0] * p[0 : 2 * H2 - 1 : 2]
+    v = _PYR_K[0] * p[..., 0 : 2 * H2 - 1 : 2, :]
     for k in range(1, 5):
-        v = v + _PYR_K[k] * p[k : k + 2 * H2 - 1 : 2]
-    out = _PYR_K[0] * v[:, 0 : 2 * W2 - 1 : 2]
+        v = v + _PYR_K[k] * p[..., k : k + 2 * H2 - 1 : 2, :]
+    out = _PYR_K[0] * v[..., 0 : 2 * W2 - 1 : 2]
     for k in range(1, 5):
-        out = out + _PYR_K[k] * v[:, k : k + 2 * W2 - 1 : 2]
+        out = out + _PYR_K[k] * v[..., k : k + 2 * W2 - 1 : 2]
     return out
 
 
@@ -75,26 +79,32 @@ def bilinear_sample(img, xy):
 
 
 def extract_patch(img, centers, half):
-    """(N, 2*half+1, 2*half+1) bilinear patches around centers (N, 2) xy.
+    """(N, 2*half+1, 2*half+1) bilinear patches around centers (N, 2) xy;
+    with a world axis, img (B, H, W) and centers (B, N, 2).
 
     As the reference: the (size+1)^2 slice starts at the integer corner and
     is CLIPPED inward at the image border, so there the window shifts
     instead of clamping pixel by pixel; the fraction is the center's own."""
     size = 2 * half + 1
-    H, W = img.shape
-    x, y = centers[:, 0], centers[:, 1]
+    H, W = img.shape[-2:]
+    x, y = centers[..., 0], centers[..., 1]
     ix = torch.floor(x)
     iy = torch.floor(y)
-    fx = (x - ix).to(img.dtype)[:, None, None]
-    fy = (y - iy).to(img.dtype)[:, None, None]
+    fx = (x - ix).to(img.dtype)[..., None, None]
+    fy = (y - iy).to(img.dtype)[..., None, None]
     x0 = torch.clamp(ix.long() - half, 0, W - (size + 1))
     y0 = torch.clamp(iy.long() - half, 0, H - (size + 1))
     r = torch.arange(size + 1, device=img.device)
-    raw = img[(y0[:, None] + r)[:, :, None], (x0[:, None] + r)[:, None, :]]
-    p00 = raw[:, :-1, :-1]
-    p01 = raw[:, :-1, 1:]
-    p10 = raw[:, 1:, :-1]
-    p11 = raw[:, 1:, 1:]
+    rows, cols = (y0[..., None] + r)[..., :, None], (x0[..., None] + r)[..., None, :]
+    if img.dim() == 3:
+        world = torch.arange(img.shape[0], device=img.device)[:, None, None, None]
+        raw = img[world, rows, cols]
+    else:
+        raw = img[rows, cols]
+    p00 = raw[..., :-1, :-1]
+    p01 = raw[..., :-1, 1:]
+    p10 = raw[..., 1:, :-1]
+    p11 = raw[..., 1:, 1:]
     return (
         (1 - fy) * (1 - fx) * p00
         + (1 - fy) * fx * p01
@@ -111,9 +121,11 @@ def clahe_tables(img, clip_limit=3.0, tile=21, nbins=256):
     Per-tile 256-bin histogram of the edge-padded image, clipped at
     clip_limit * area / nbins with the excess spread evenly, CDF normalized
     to [0, 255] and rounded to bf16 (the reference's +-0.5 gray budget,
-    pyramid.py:190)."""
+    pyramid.py:190). With a world axis, img (B, H, W) gives v (B, H, W) and
+    lut (B, ty*tx, 256)."""
     img = torch.clamp(img.to(torch.float32), 0.0, 255.0)
-    H, W = img.shape
+    H, W = img.shape[-2:]
+    lead = img.shape[:-2]
     ty = tx = tile
     th, tw = -(-H // ty), -(-W // tx)  # tile size (ceil)
     Hp, Wp = th * ty, tw * tx
@@ -123,16 +135,21 @@ def clahe_tables(img, clip_limit=3.0, tile=21, nbins=256):
     dev = img.device
     tid = ((torch.arange(Hp, device=dev) // th)[:, None] * tx
            + (torch.arange(Wp, device=dev) // tw)[None, :])
-    hist = torch.bincount((tid * nbins + vp).reshape(-1), minlength=ty * tx * nbins)
-    hist = hist.reshape(ty * tx, nbins).to(torch.float32)
+    bins = tid * nbins + vp
+    n_worlds = 1
+    if lead:  # one bincount for every world: world b's bins from b * ty*tx*nbins
+        n_worlds = lead[0]
+        bins = bins + (torch.arange(n_worlds, device=dev) * (ty * tx * nbins))[:, None, None]
+    hist = torch.bincount(bins.reshape(-1), minlength=n_worlds * ty * tx * nbins)
+    hist = hist.reshape(lead + (ty * tx, nbins)).to(torch.float32)
 
     # clip + redistribute (cv semantics: clipLimit scaled by tile area / bins)
     limit = max(clip_limit * (th * tw) / nbins, 1.0)
-    excess = torch.sum(torch.clamp(hist - limit, min=0.0), dim=1, keepdim=True)
+    excess = torch.sum(torch.clamp(hist - limit, min=0.0), dim=-1, keepdim=True)
     hist = torch.clamp(hist, max=limit) + excess / nbins
 
-    cdf = torch.cumsum(hist, dim=1)
-    lut = (cdf - cdf[:, :1]) / torch.clamp(cdf[:, -1:] - cdf[:, :1], min=1.0) * 255.0
+    cdf = torch.cumsum(hist, dim=-1)
+    lut = (cdf - cdf[..., :1]) / torch.clamp(cdf[..., -1:] - cdf[..., :1], min=1.0) * 255.0
     return v.contiguous(), lut.to(torch.bfloat16).contiguous(), (ty, tx), (th, tw)
 
 

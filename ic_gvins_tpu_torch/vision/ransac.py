@@ -15,6 +15,9 @@ CUDA runs draw the same table. It cannot
 reproduce ``jax.random``'s stream; parity tests substitute the reference's
 table there. The 8x8 solve and the 3x3 eigenvector follow the reference's
 closed forms, so that the same table gives the same inlier mask.
+``fundamental_ransac`` also takes a leading world axis (the JAX package's
+vmap over worlds in ``parallel/mesh.py``): every world draws, on the host,
+the table its own call would draw.
 """
 
 import math
@@ -23,11 +26,11 @@ import torch
 
 
 def _normalize(pts, valid):
-    n = torch.clamp(torch.sum(valid), min=1.0)
-    mean = torch.sum(pts * valid[:, None], dim=0) / n
-    d = torch.linalg.vector_norm(pts - mean, dim=1) * valid
-    scale = math.sqrt(2.0) / torch.clamp(torch.sum(d) / n, min=1e-9)
-    return (pts - mean) * scale, scale
+    n = torch.clamp(torch.sum(valid, dim=-1), min=1.0)[..., None]
+    mean = torch.sum(pts * valid[..., None], dim=-2) / n
+    d = torch.linalg.vector_norm(pts - mean[..., None, :], dim=-1) * valid
+    scale = math.sqrt(2.0) / torch.clamp(torch.sum(d, dim=-1, keepdim=True) / n, min=1e-9)
+    return (pts - mean[..., None, :]) * scale[..., None], scale[..., 0]
 
 
 def _draw_samples(valid, num_hyp, generator):
@@ -108,10 +111,10 @@ def _eight_point(p0, p1):
     )
     B = torch.cat([A[..., :8], -A[..., 8:]], dim=-1)
     f8 = _gauss_jordan_solve(B, 8)
-    F = torch.cat([f8, torch.ones_like(f8[..., :1])], dim=-1).reshape(-1, 3, 3)
+    F = torch.cat([f8, torch.ones_like(f8[..., :1])], dim=-1).reshape(f8.shape[:-1] + (3, 3))
     # rank-2 enforcement: subtract the smallest singular triplet
     v3 = _sym3_smallest_eigvec(F.transpose(-1, -2) @ F)
-    Fv = torch.einsum("hij,hj->hi", F, v3)
+    Fv = torch.einsum("...ij,...j->...i", F, v3)
     return F - Fv[..., :, None] * v3[..., None, :]
 
 
@@ -120,34 +123,44 @@ def fundamental_ransac(pts0, pts1, valid, threshold, num_hyp=256, seed=0):
 
     pts0/pts1: (N,2) f64 undistorted pixels; valid: (N,) f64 0/1;
     threshold: inlier threshold in pixels (reprojection_error_std).
-    Returns (inlier_mask (N,) bool, best_inlier_count)."""
-    N = pts0.shape[0]
+    Returns (inlier_mask (N,) bool, best_inlier_count). With a leading
+    world axis on pts0, pts1 and valid, both results gain it; world b's
+    table is the one its own call draws (a generator seeded ``seed``)."""
     validb = valid > 0
+    lead = valid.shape[:-1]
 
     n0, s0 = _normalize(pts0, valid)
     n1, s1 = _normalize(pts1, valid)
     n0 = n0.to(torch.float32)
     n1 = n1.to(torch.float32)
 
-    samples = _draw_samples(valid, num_hyp, torch.Generator().manual_seed(seed)).to(pts0.device)
-    Fs = _eight_point(n0[samples], n1[samples])                  # (H, 3, 3)
+    if lead:   # one host read of every world's valid, then each world's own draw
+        host_valid = valid.cpu()
+        samples = torch.stack([_draw_samples(v, num_hyp, torch.Generator().manual_seed(seed))
+                               for v in host_valid]).to(pts0.device)
+        world = torch.arange(lead[0], device=pts0.device)[:, None, None]
+        Fs = _eight_point(n0[world, samples], n1[world, samples])   # (B, H, 3, 3)
+    else:
+        samples = _draw_samples(valid, num_hyp, torch.Generator().manual_seed(seed)).to(pts0.device)
+        Fs = _eight_point(n0[samples], n1[samples])                  # (H, 3, 3)
 
-    ones = torch.ones((N, 1), dtype=n0.dtype, device=n0.device)
-    p0h = torch.cat([n0, ones], dim=1)
-    p1h = torch.cat([n1, ones], dim=1)
-    Fx0 = torch.einsum("nj,hij->hni", p0h, Fs)                   # F @ x0
-    Ftx1 = torch.einsum("nj,hji->hni", p1h, Fs)                  # F^T @ x1
-    num = torch.sum(p1h[None] * Fx0, dim=-1)
+    ones = torch.ones(n0.shape[:-1] + (1,), dtype=n0.dtype, device=n0.device)
+    p0h = torch.cat([n0, ones], dim=-1)
+    p1h = torch.cat([n1, ones], dim=-1)
+    Fx0 = torch.einsum("...nj,...hij->...hni", p0h, Fs)          # F @ x0
+    Ftx1 = torch.einsum("...nj,...hji->...hni", p1h, Fs)         # F^T @ x1
+    num = torch.sum(p1h[..., None, :, :] * Fx0, dim=-1)
     num = num * num
     den = Fx0[..., 0] ** 2 + Fx0[..., 1] ** 2 + Ftx1[..., 0] ** 2 + Ftx1[..., 1] ** 2
-    d = num / torch.clamp(den, min=1e-12)                        # (H, N) Sampson
+    d = num / torch.clamp(den, min=1e-12)                        # (..., H, N) Sampson
 
     # threshold in normalized coords: scale by the normalization factors
-    thr2 = ((threshold ** 2) * (s0 * s1)).to(d.dtype)
-    inliers = (d < thr2) & validb[None, :]
-    counts = torch.sum(inliers, dim=1)
-    best = torch.argmax(counts)
-    return inliers[best] | ~validb, counts[best]
+    thr2 = ((threshold ** 2) * (s0 * s1)).to(d.dtype)[..., None, None]
+    inliers = (d < thr2) & validb[..., None, :]
+    counts = torch.sum(inliers, dim=-1)
+    best = torch.argmax(counts, dim=-1, keepdim=True)
+    mask = torch.take_along_dim(inliers, best[..., None], dim=-2)[..., 0, :]
+    return mask | ~validb, torch.take_along_dim(counts, best, dim=-1)[..., 0]
 
 
 def triangulate(Rcw0, tcw0, Rcw1, tcw1, pc0, pc1):

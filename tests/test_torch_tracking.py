@@ -106,7 +106,8 @@ def test_port_imports_no_jax_or_yaml():
     mods = ["ic_gvins_tpu_torch", "ic_gvins_tpu_torch.convert", "ic_gvins_tpu_torch.ops._build"] + [
         f"ic_gvins_tpu_torch.{p}.{m}" for p, ms in
         (("core", ("rotation_np", "quaternion", "earth", "earth_np", "types", "gpstime")),
-         ("engine", ("config", "host", "replay", "estimator", "output")),
+         ("engine", ("config", "host", "replay", "estimator", "output", "checkpoint")),
+         ("parallel", ("mesh",)),
          ("ins", ("parallel_scan", "mechanization", "preintegration", "preintegration_odo")),
          ("factors", ("robust", "basic", "preint_factor", "preint_odo_factor", "reprojection",
                       "marginalization")),
