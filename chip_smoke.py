@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU (H100): its visual frontend, its
 GNSS/INS replay (with and without the wheel odometer), its
-GNSS-visual-inertial replay, from memory and from files, and its batched
-forms over a device mesh and its checkpoint.
+GNSS-visual-inertial replay, from memory and from files, its batched
+forms over a device mesh and its checkpoint, its user functions and its
+measurement scripts.
 
 Run from the repository root, with no arguments:
 
@@ -91,10 +92,25 @@ of JAX. Phases, in order; any failure raises and the script exits nonzero:
    on 8 worlds, each against its single call; phase 6's estimator saved
    with ``save_checkpoint``, loaded into a fresh estimator on the card and
    both optimized once more.
+10. the user functions of the last slice and the measurement scripts
+   (``script_phase``): the undistortion remap at 1278x1022 on the card
+   against the CPU and the analytic dot test of
+   tests/test_vision_kernels.py, the world/pixel transforms and
+   ``state_to_camera_pose`` CUDA against CPU, the dense
+   ``build_normal_equations`` at the production widths (N 20, L 512, R
+   2048) on ``np_problem``'s window against the block assembly, with
+   ``apply_gauge`` freezing the inactive columns; then
+   scripts/bench_frontend_stages_torch.py (every stage printed, device-only
+   and as issued, and the frontend's busy share), one run of
+   scripts/profile_replay_sections_torch.py (its top ten sections printed)
+   and a 20 s run of scripts/bench_production_torch.py at 1278x1022 with
+   its gates (TRACKING_NORMAL, ATE RMSE < 0.25 m); each script with the
+   launch counters set to 0 just before it and read just after, every
+   kernel launched, its record in build/phase10_*.json.
 
 Each phase prints its seconds. The kernels' ``launches`` are phase 8's
-replay's (``launches_by_path`` keeps phase 4's, phase 7's and phase 9's
-batched frame's too).
+replay's (``launches_by_path`` keeps phase 4's, phase 7's, phase 9's
+batched frame's and phase 10's scripts' too).
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. The helpers take the port's modules as
@@ -246,11 +262,15 @@ def cuda_ms(torch, fn, reps=20, warmup=3, queued=False):
     return start.elapsed_time(end) / reps
 
 
+def nvidia_smi():
+    """nvidia-smi's "name, power limit" line of the first card."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def the_card(torch):
     """Print and return nvidia-smi's name and power limit of the card."""
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    card = smi.splitlines()[0]
+    card = nvidia_smi()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     return card
@@ -703,6 +723,69 @@ def device_activity(torch, prof, wall_ms):
     busy += cur_e - cur_s
     kernels = sum(1 for name, _, _ in dev if not name.lower().startswith(("memcpy", "memset")))
     return kernels, min(busy / 1e3, wall_ms)
+
+
+def annotated_device_ms(torch, prof, prefix):
+    """Device busy ms inside each ``torch.profiler.record_function`` span of
+    a finished session whose name starts with ``prefix``: [(name, busy ms,
+    span ms)] in start order, busy the union of the device kernels' and
+    copies' intervals clipped to the span (the profiler puts both on one
+    clock). Spans that end in a synchronize hold all their device work.
+    The profiler mirrors each span onto the device's timeline (a
+    "gpu_user_annotation" of the same name, from its first kernel to its
+    last): those are not device work and are left out. None if the session
+    holds no device event."""
+    raw = prof.profiler.kineto_results.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    spans, dev = [], []
+    for e in raw:
+        s, d, named = e.start_ns(), e.duration_ns(), e.name().startswith(prefix)
+        if e.device_type() == cuda:
+            if not named:
+                dev.append((s, s + d))
+        elif named:
+            spans.append((s, s + d, e.name()))
+    if not dev:
+        return None
+    dev.sort()
+    starts = np.array([s for s, _ in dev])
+    out = []
+    for s0, e0, name in sorted(spans):
+        busy, cur = 0, None
+        for s, e in dev[max(int(np.searchsorted(starts, s0)) - 64, 0):]:
+            if s >= e0:
+                break
+            s, e = max(s, s0), min(e, e0)
+            if e <= s:
+                continue
+            if cur is None or s > cur[1]:
+                busy += 0 if cur is None else cur[1] - cur[0]
+                cur = [s, e]
+            else:
+                cur[1] = max(cur[1], e)
+        busy += 0 if cur is None else cur[1] - cur[0]
+        out.append((name, busy / 1e6, (e0 - s0) / 1e6))
+    return out
+
+
+def card_record(torch, device):
+    """The run's device fields of a script's JSON line: the card's name and
+    power limit (nvidia-smi), torch and CUDA versions; on the CPU the name
+    is "cpu" and the power limit null."""
+    rec = dict(device="cpu", power_limit_w=None, torch=torch.__version__, cuda=torch.version.cuda)
+    if torch.device(device).type == "cuda":
+        smi = nvidia_smi()
+        rec.update(device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+                   power_limit_w=float(smi.rsplit(",", 1)[1].strip().split()[0]))
+    return rec
+
+
+def kernel_launches():
+    """The three kernel wrappers' launch counters, by name."""
+    from ic_gvins_tpu_torch.ops import clahe, lk, subpix
+
+    return {"clahe_apply": clahe.clahe_apply.launches, "lk_pyr": lk.lk_pyr.launches,
+            "subpix": subpix.subpix.launches}
 
 
 def gins_phase(torch, card):
@@ -2003,6 +2086,179 @@ def fleet_phase(torch, card, wrappers, images, est):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 10: the user functions of the last slice, and the four measurement
+# scripts (scripts/*_torch.py)
+# --------------------------------------------------------------------------
+
+# CUDA against CPU: the remap's coordinates within 4 float32 spacings of
+# the widest coordinate (1.2e-4 px each at 1024-2048 px; the card contracts
+# its products into fused multiply-adds), the image within 1e-3 grey levels
+# plus that shift times the image's steepest gradient; f64 transforms 1e-12
+# of scale; the dense normal equations 1e-9 of H's scale
+USERFN_TOL = dict(map_spacings=4, grey=1e-3, f64=1e-12, normal_rel=1e-9)
+PROD_SMOKE_SECONDS = 20.0        # the production envelope's smoke run (its 300 s run is PERF.md's)
+
+
+def userfn_checks(torch, card):
+    """Phase 10a: the user functions on the card against the port's CPU run:
+    the undistortion remap at 1278x1022 and the analytic dot test, the
+    world/pixel transforms and state_to_camera_pose, and the dense normal
+    equations at the production widths against the block assembly."""
+    from ic_gvins_tpu_torch import convert
+    from ic_gvins_tpu_torch.core import quaternion as quat
+    from ic_gvins_tpu_torch.ins import mechanization as mech
+    from ic_gvins_tpu_torch.solver import problem as prob
+    from ic_gvins_tpu_torch.vision import camera as cam
+
+    dev = torch.device(DEVICE)
+    camera = cam.PinholeCamera.from_config(KAIST_INTRINSIC, KAIST_DISTORTION, [W, H])
+    maps = {d: cam.undistort_rectify_map(camera, device=d) for d in (DEVICE, "cpu")}
+    img = torch.tensor(render(cam, camera, make_scene(np.random.default_rng(SEED), 300, (-12, 12), (-9, 9), (7, 20)),
+                              np.eye(3), np.zeros(3), H, W, 2.5, 10), dtype=torch.float32)
+    outs = {d: cam.undistort_image(img.to(d), maps[d]) for d in (DEVICE, "cpu")}
+    d_map = float((maps[DEVICE].cpu() - maps["cpu"]).abs().max())
+    d_img = float((outs[DEVICE].cpu() - outs["cpu"]).abs().max())
+    map_tol = USERFN_TOL["map_spacings"] * float(np.spacing(np.float32(W)))
+    grad = max(float(np.abs(np.diff(img.numpy(), axis=a)).max()) for a in (0, 1))
+    img_tol = USERFN_TOL["grey"] + map_tol * grad
+    # tests/test_vision_kernels.py's dot test, on the card
+    dot = cam.PinholeCamera.from_config([120.0, 120.0, 64.0, 48.0], [-0.25, 0.08, 0.0005, 0.0003], [128, 96])
+    xd, yd = (int(round(v)) for v in cam.distort_points(dot, np.array([[40.0, 30.0]]))[0])
+    dimg = torch.zeros((96, 128), dtype=torch.float32, device=dev)
+    dimg[yd - 1: yd + 2, xd - 1: xd + 2] = 255.0
+    und = cam.undistort_image(dimg, cam.undistort_rectify_map(dot, device=DEVICE)).cpu().numpy()
+    peak = np.unravel_index(np.argmax(und), und.shape)
+    print(f"[userfn] undistort 1278x1022: map CUDA - CPU {d_map:.3g} px (tolerance {map_tol:.3g}), image "
+          f"{d_img:.3g} grey levels (tolerance {img_tol:.3g}); dot test peak at {tuple(int(v) for v in peak[::-1])} "
+          f"(want (40, 30)), {und.max():.1f} ({card})")
+    assert d_map <= map_tol and d_img <= img_tol, (d_map, d_img)
+    assert abs(peak[1] - 40.0) <= 1.5 and abs(peak[0] - 30.0) <= 1.5 and und.max() > 50.0
+
+    rng = np.random.default_rng(SEED + 10)
+    n = 256
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    R = quat.to_matrix(torch.tensor(q)).numpy()
+    t = rng.normal(0, 5, (n, 3))
+    pw = t + np.einsum("nij,nj->ni", R, np.c_[rng.uniform(-4, 4, (n, 2)), rng.uniform(5, 20, n)])
+    px = rng.uniform([0, 0], [W, H], (n, 2))
+    cases = {"world2cam": (R, t, pw), "cam2world": (R, t, pw), "world2pixel": (camera, R, t, pw),
+             "reprojection_error": (camera, R, t, pw, px), "pixel2unitcam": (camera, px),
+             "pixel2world": (camera, R, t, px)}
+    worst = {}
+    for name, args in cases.items():
+        run = {d: getattr(cam, name)(*[a if isinstance(a, cam.PinholeCamera) else torch.tensor(a, device=d)
+                                       for a in args]) for d in (DEVICE, "cpu")}
+        worst[name] = float((run[DEVICE].cpu() - run["cpu"]).abs().max()) / max(float(run["cpu"].abs().max()), 1.0)
+    tbc, Rbc = torch.tensor([0.1, -0.2, 0.3], dtype=torch.float64), torch.tensor(R[0])
+    pose = {d: mech.state_to_camera_pose(torch.tensor(pw, device=d), torch.tensor(q, device=d), tbc.to(d),
+                                         Rbc.to(d)) for d in (DEVICE, "cpu")}
+    worst["state_to_camera_pose"] = max(float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1.0)
+                                        for a, b in zip(pose[DEVICE], pose["cpu"]))
+    print(f"[userfn] transforms, {n} points, CUDA against CPU (relative to scale): "
+          f"{ {k: float('%.3g' % v) for k, v in worst.items()} }")
+    assert max(worst.values()) <= USERFN_TOL["f64"], worst
+
+    cfg = prob.WindowConfig(**FLEET_WINDOW)
+    params, tables = np_problem(cfg, SEED + 2)
+    tables = tables._replace(ext_active=np.ones(()), td_active=np.ones(()))
+    tp, tt = convert.window_params(params, DEVICE), convert.factor_tables(tables, DEVICE)
+    Hd, bd, act = prob.build_normal_equations(tp, tt, cfg)
+    Hss, Hsl, hll, b2, act2 = prob.build_normal_blocks(tp, tt, cfg)
+    Ds = cfg.lm_off
+    scale = max(float(Hd.abs().max()), 1.0)
+    err = max(float((Hss - Hd[:Ds, :Ds]).abs().max()), float((Hsl - Hd[:Ds, Ds:]).abs().max()),
+              float((hll - torch.diagonal(Hd)[Ds:]).abs().max())) / scale
+    off_lm = float((Hd[Ds:, Ds:] - torch.diag(torch.diagonal(Hd)[Ds:])).abs().max())
+    err_b = float((b2 - bd).abs().max()) / max(float(bd.abs().max()), 1.0)
+    Hg, bg = prob.apply_gauge(Hd, bd, act)
+    off = act == 0
+    frozen = bool(torch.equal(Hg[off][:, off], torch.eye(int(off.sum()), dtype=Hg.dtype, device=dev))
+                  and not Hg[off][:, ~off].any() and not bg[off].any())
+    print(f"[userfn] dense normal equations, D = {cfg.D} (N {cfg.N}, L {cfg.L}, R {cfg.R}): blocks within "
+          f"{err:.3g} of H's scale {scale:.3g}, b within {err_b:.3g}; landmark block off-diagonal {off_lm}; "
+          f"apply_gauge freezes the {int(off.sum())} inactive columns: {frozen} ({card})")
+    assert err <= USERFN_TOL["normal_rel"] and err_b <= USERFN_TOL["normal_rel"] and off_lm == 0.0 and frozen
+    assert torch.equal(act, act2)
+
+
+def load_script(name):
+    """scripts/<name>.py as a module (its work runs under its __main__ check)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def script_phase(torch, card, wrappers):
+    """Phase 10: the user functions (``userfn_checks``), then the measurement
+    scripts on the card, each with the launch counters set to 0 just before
+    it and read just after, its JSON record written to build/phase10_*.json:
+    scripts/bench_frontend_stages_torch.py (every stage), one run of
+    scripts/profile_replay_sections_torch.py (no warm replay: the earlier
+    phases warmed the process) and a PROD_SMOKE_SECONDS run of
+    scripts/bench_production_torch.py with its gates. Returns the launches
+    by script."""
+    import contextlib
+    import io
+
+    t_phase = time.perf_counter()
+    userfn_checks(torch, card)
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(out_dir, exist_ok=True)
+
+    def run(name, *args, **kw):
+        mod = load_script(name)
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rec = mod.main(*args, **kw)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        with open(os.path.join(out_dir, f"phase10_{name}.json"), "w") as f:
+            json.dump(rec, f, indent=1)
+        print(f"[scripts] {name}: {time.perf_counter() - t0:.1f} s; launches {launches}")
+        assert rec["launches"] == launches and all(n > 0 for n in launches.values()), launches
+        assert rec["device"] == torch.cuda.get_device_name(0) and rec["power_limit_w"] > 0
+        return rec, launches
+
+    by_script = {}
+    rec, by_script["frontend_stages"] = run("bench_frontend_stages_torch", ["--device", DEVICE])
+    for name, st in rec["stages"].items():
+        dv = st["device_ms"]
+        print(f"[scripts] stage {name}: as issued median {st['as_issued_ms']['median']:.4f} ms, p90 "
+              f"{st['as_issued_ms']['p90']:.4f}; device-only median {dv['median']:.4f} ms, p90 {dv['p90']:.4f} "
+              f"({st['device_from']}) ({card})")
+    fr = rec["frontend_frames"]
+    print(f"[scripts] frontend frames: {fr['frames']} profiled, median {fr['frame_ms']['median']:.2f} ms, "
+          f"{fr['kernels_per_frame']:.0f} kernels a frame, device busy {fr['busy_ms']:.2f} of {fr['wall_ms']:.2f} ms "
+          f"= {100 * fr['busy_share']:.1f} % ({card})")
+    assert all(st["device_ms"] is not None for st in rec["stages"].values())
+
+    rec, by_script["replay_sections"] = run("profile_replay_sections_torch", ["--device", DEVICE], warm=False)
+    print(f"[scripts] replay sections: {rec['frames']} frames ({rec['timed_frames']} timed, {rec['window_frames']} "
+          f"profiled), {rec['episodes']} episodes, state {rec['state']}, wall {rec['wall_ms_per_frame']:.2f} ms a "
+          f"frame; top sections, ms a frame ({card}):")
+    for label, row in list(rec["sections_ms_per_frame"].items())[:10]:
+        split = (f", device {row['device_ms']:.3f} + host {row['host_ms']:.3f}"
+                 if row.get("device_ms") is not None else "")
+        print(f"[scripts]   {label}: {row['excl_ms']:.3f} ms exclusive, {row['calls']:.2f} calls{split}")
+
+    rec, by_script["production_replay"] = run("bench_production_torch", ["--device", DEVICE],
+                                               duration=PROD_SMOKE_SECONDS)
+    print(f"[scripts] production envelope {rec['duration_s']:.1f} s at {rec['resolution']}: wall {rec['wall_s']:.2f} s "
+          f"(render {rec['render_s']:.2f} s apart), {rec['fps']:.3f} fps, {rec['sim_s_per_wall_s']:.3f} sim-s per "
+          f"wall-s, ATE RMSE {rec['ate_rmse_m']:.4f} m, max {rec['ate_max_m']:.4f} m, state {rec['final_state']}, "
+          f"{rec['episodes']} episodes, peak device {rec['peak_device_mb']:.0f} MB, peak RSS {rec['peak_rss_mb']:.0f} "
+          f"MB; gates {rec['gates']} ({card})")
+    assert rec["ok"], rec["gates"]
+    print(f"[scripts] phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return by_script
+
 
 def main():
     t_start = time.perf_counter()
@@ -2236,11 +2492,17 @@ def main():
     t_mark = time.perf_counter()
     fleet_launches = fleet_phase(torch, card, wrappers, images, gins_model.est)
     phase_s[9] = time.perf_counter() - t_mark
+
+    # ---- phase 10: the user functions, and the measurement scripts --------
+    t_mark = time.perf_counter()
+    script_launches = script_phase(torch, card, wrappers)
+    phase_s[10] = time.perf_counter() - t_mark
     for k in records:
         records[k]["launches_by_path"] = {"frontend_slice": records[k]["launches"],
                                           "gvins_replay": int(replay_launches[k]),
                                           "long_fault_replay": int(long_launches[k]),
-                                          "fleet_frontend": int(fleet_launches[k])}
+                                          "fleet_frontend": int(fleet_launches[k]),
+                                          **{path: int(n[k]) for path, n in script_launches.items()}}
         records[k]["launches"] = int(long_launches[k])
     print(f"[phases] seconds by phase {json.dumps({str(k): round(v, 1) for k, v in sorted(phase_s.items())})}, "
           f"total {time.perf_counter() - t_start:.1f} s")

@@ -5,7 +5,8 @@ Port of ``ic_gvins_tpu/core/types.py`` (parity target: IC-GVINS
 ``ImuBatch`` holds a padded series of samples in increment form; padded
 samples have dt = 0. Leading batch dims broadcast. Also
 ``integration_params_from_config``, which the JAX package keeps in
-``engine/config.py`` behind a jax import.
+``engine/config.py`` behind a jax import (the port's ``engine/config.py``
+calls this one).
 """
 
 import math
@@ -59,6 +60,33 @@ class NavState(NamedTuple):
         z = torch.zeros((), dtype=dtype, device=device)
         return NavState(time=z, p=z3, q=torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device),
                         v=z3, bg=z3, ba=z3, sodo=z, sg=z3, sa=z3)
+
+    def to_pose_mix(self):
+        """Flatten to the optimizer parameter blocks: pose[7] = [p, q_xyzw],
+        mix[10] = [v, bg, ba, sodo] (integration_state.h:53-66; the
+        NORMAL/EARTH variants use the first 9 mix entries)."""
+        pose = torch.cat([self.p, self.q], dim=-1)
+        mix = torch.cat([self.v, self.bg, self.ba, self.sodo[..., None]], dim=-1)
+        return pose, mix
+
+    @staticmethod
+    def from_pose_mix(time, pose, mix):
+        """The inverse of ``to_pose_mix`` over leading batch axes; sg and sa
+        are zero."""
+        return NavState(time=time, p=pose[..., :3], q=pose[..., 3:7], v=mix[..., :3], bg=mix[..., 3:6],
+                        ba=mix[..., 6:9], sodo=mix[..., 9], sg=torch.zeros_like(pose[..., :3]),
+                        sa=torch.zeros_like(pose[..., :3]))
+
+
+class GnssData(NamedTuple):
+    """One GNSS fix (types.h:32-40); blh may hold local n-frame coords after
+    global2local conversion, as GVINS::addNewGnss does (ic_gvins.cc:199-220)."""
+
+    time: torch.Tensor
+    blh: torch.Tensor
+    std: torch.Tensor
+    isyawvalid: torch.Tensor
+    yaw: torch.Tensor
 
 
 class IntegrationParams(NamedTuple):

@@ -90,6 +90,15 @@ class GvinsConfig:
         return 1.0 / self.imudatarate
 
 
+def integration_params_from_config(cfg: GvinsConfig, gravity=NORMAL_GRAVITY, device=None):
+    """The IntegrationParams of ``cfg`` (``core.types.
+    integration_params_from_config``, at the JAX package's import path;
+    ``core.types`` is imported here, at the call)."""
+    from ..core.types import integration_params_from_config
+
+    return integration_params_from_config(cfg, gravity=gravity, device=device)
+
+
 def load_config(path) -> GvinsConfig:
     with open(path, "r") as f:
         raw = parse_yaml(f.read(), name=str(path))

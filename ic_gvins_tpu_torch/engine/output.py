@@ -7,7 +7,8 @@ extrinsic.txt, mappoint.txt, tracking.txt; text columns as FileSaver::dump's
 "%-15.9lf " (``fileio/filesaver.cc:51-66``). One change: the JAX copy
 converts each nav sample with jax calls; here ``write_nav_chunk`` converts a
 chunk of samples at once in numpy (``earth_np``, ``rotation_np``), so the
-replay runs no device operation per sample.
+replay runs no device operation per sample; ``write_nav`` is that path
+for one sample.
 """
 
 import math
@@ -63,6 +64,13 @@ class OutputFiles:
         self.trajectory = TextWriter(os.path.join(outdir, "trajectory.csv"))
         self.tracking = TextWriter(os.path.join(outdir, "tracking.txt"))
         self._nav_counter = 0
+
+    def write_nav(self, origin, time, p, q_xyzw, v, bg, ba, sodo=0.0, decimate=10):
+        """One IMU sample's nav/err/trajectory output at 1-in-``decimate``
+        IMU rate (misc.cc:417-499): ``write_nav_chunk`` of that one sample,
+        on the same counter."""
+        self.write_nav_chunk(origin, np.array([time], np.float64), np.asarray(p)[None],
+                             np.asarray(q_xyzw)[None], np.asarray(v)[None], bg, ba, sodo, decimate)
 
     def write_nav_chunk(self, origin, times, p, q_xyzw, v, bg, ba, sodo=0.0, decimate=10):
         """Nav/err/trajectory output of a chunk of IMU samples at 1-in-

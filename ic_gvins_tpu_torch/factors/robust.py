@@ -45,3 +45,10 @@ def correct_blocks(r, J, use_kernel, delta=1.0):
     use = torch.as_tensor(use_kernel, dtype=r.dtype, device=r.device)
     return use * r_corr + (1 - use) * r, use * J_corr + (1 - use) * J
 
+
+def correct_block(r, J, use_kernel, delta=1.0):
+    """The corrector on one whitened block: r (R,), J (R, C) (any packed
+    column layout); where ``use_kernel`` is false the block passes through
+    unchanged. Returns (r_corrected, J_corrected)."""
+    r_c, J_c = correct_blocks(r[None], J[None], use_kernel, delta)
+    return r_c[0], J_c[0]

@@ -133,6 +133,13 @@ def interpolate_pose(p0, q0, t0, p1, q1, t1, t):
     return p0 + (p1 - p0) * s, q
 
 
+def state_to_camera_pose(p, q, tbc, Rbc):
+    """Body state -> camera pose (misc.cc:102-108): (p + Rwb tbc, Rwb Rbc),
+    over leading batch axes of p and q."""
+    Rwb = quat.to_matrix(q)
+    return p + Rwb @ tbc, Rwb @ Rbc
+
+
 def detect_zero_velocity(dtheta, dvel, mask, imudatarate, gyr_threshold=0.002, acc_threshold=0.1):
     """Zero-velocity detection over a masked IMU window
     (MISC::detectZeroVelocity, misc.cc:363-415): per-axis std of the

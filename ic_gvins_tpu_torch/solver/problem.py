@@ -449,6 +449,77 @@ def _pad_block(M, ND, lead=0):
     return F.pad(M, (lead, ND - b - lead, lead, ND - a - lead))
 
 
+def build_normal_equations(params, tables: FactorTables, cfg: WindowConfig):
+    """Assemble the dense normal equations: (H (D,D), b (D,) = -Jᵀr, act
+    (D,)), with the robust correction and masks. Each factor's whitened
+    jacobian block, over the columns it touches, is scattered into H and b
+    with ``index_add_``: the blocks ``build_normal_blocks`` places by node
+    pair, assembled here a second, independent way (the JAX package's
+    dense form, for tests, the marginalization checks and small
+    problems)."""
+    D, ND = cfg.D, cfg.node_dim
+    dev = params.poses.device
+    H = torch.zeros(D * D, dtype=F64, device=dev)
+    b = torch.zeros(D, dtype=F64, device=dev)
+    ar = lambda n: torch.arange(n, device=dev)  # noqa: E731
+
+    def add(cols, J, r, w):
+        """Blocks J (B, res, C) and r (B, res) on columns cols (B, C), weighted w (B,)."""
+        H.index_add_(0, (cols[:, :, None] * D + cols[:, None, :]).reshape(-1), _jtj(J, w).reshape(-1))
+        b.index_add_(0, cols.reshape(-1), -_jtr(J, r, w).reshape(-1))
+
+    # ---- GNSS (3 res, 6 pose cols) ----
+    t = tables.gnss
+    poses = params.poses[t.idx]
+    rg, Jg = correct_blocks(basic.gnss_residual(poses, t.blh, t.std, tables.antlever),
+                            basic.gnss_jacobian(poses, t.std, tables.antlever), t.robust > 0)
+    add(t.idx[:, None] * ND + ar(POSE_LOCAL), Jg, rg, t.valid)
+
+    # ---- preintegration (2*ND cols over nodes idx0, idx0+1) ----
+    t = tables.preint
+    args = _preint_args(params, t)
+    pf = _preint_factor(cfg)
+    add(t.idx0[:, None] * ND + ar(2 * ND), torch.cat(pf.jacobians(*args, with_earth=cfg.with_earth), dim=-1),
+        pf.residual(*args, with_earth=cfg.with_earth), t.valid)
+
+    # ---- reprojection (2 res, 20 cols: [ref 6, obs 6, ext 6, lm 1, td 1]) ----
+    t = tables.reproj
+    rr, Jcat = _reproj_blocks(params, t, tables.ext_active, tables.td_active)
+    cols = torch.cat([t.ref_idx[:, None] * ND + ar(POSE_LOCAL), t.obs_idx[:, None] * ND + ar(POSE_LOCAL),
+                      (cfg.ext_off + ar(POSE_LOCAL)).expand(cfg.R, POSE_LOCAL), (cfg.lm_off + t.lm_idx)[:, None],
+                      torch.full((cfg.R, 1), cfg.td_off, device=dev)], dim=1)
+    add(cols, Jcat, rr, t.valid)
+
+    # ---- imu error factor on the newest mix ----
+    pr = tables.prior
+    k = pr.imuerr_idx.reshape(1)
+    res_fn, jac_fn = _imu_error_fns(cfg)
+    add(k[:, None] * ND + POSE_LOCAL + ar(cfg.mix_dim), jac_fn(device=dev)[None], res_fn(params.mixes[k]),
+        pr.imuerr_valid.reshape(1))
+
+    # ---- init priors on node 0 ----
+    pv = pr.valid.reshape(1)
+    add(ar(POSE_LOCAL)[None], basic.pose_prior_jacobian(params.poses[0], pr.pose_prior, pr.pose_prior_std)[None],
+        basic.pose_prior_residual(params.poses[0], pr.pose_prior, pr.pose_prior_std)[None], pv)
+    add(POSE_LOCAL + ar(cfg.mix_dim)[None], basic.mix_prior_jacobian(pr.mix_prior_std)[None],
+        basic.mix_prior_residual(params.mixes[0], pr.mix_prior, pr.mix_prior_std)[None], pv)
+
+    # ---- marginalization prior (exact tangent chaining; NP support) ----
+    H = H.reshape(D, D)
+    m, NP = tables.marg, cfg.lm_off
+    dx0 = params.boxminus(cfg, m.x0)[:NP]
+    rc, Cj = _marg_rot_correction(dx0, cfg)
+    H[:NP, :NP] += m.valid * _dxT_rows(_dx_cols(m.H0, rc, Cj), rc, Cj)
+    b[:NP] -= m.valid * _dxT_vec(m.Jte0 + m.H0 @ dx0, rc, Cj)
+    return H, b, column_activity(tables, cfg)
+
+
+def apply_gauge(H, b, act):
+    """Freeze inactive columns of the dense form: unit diagonal, zero
+    gradient, so dx = 0 there."""
+    return H * act[:, None] * act[None, :] + torch.diag(1.0 - act), b * act
+
+
 def build_normal_blocks(params, tables: FactorTables, cfg: WindowConfig):
     """Assemble the normal equations in BLOCK form for the LM loop:
     (Hss (Ds,Ds), Hsl (Ds,L), hll (L,), b (D,) = -Jᵀr, act (D,)). The

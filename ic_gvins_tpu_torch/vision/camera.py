@@ -5,9 +5,8 @@ Twin of ``ic_gvins_tpu/vision/camera.py`` (parity target: IC-GVINS
 function dispatches on its input: numpy in, numpy out (the host-side graph
 bookkeeping), torch tensor in, torch tensor out (the device stages of the
 tracker, called with f64 tensors). Camera parameters are python floats so
-they combine with either. The reference's image-scale remap helpers
-(``undistort_rectify_map``, ``undistort_image``) and its world/camera
-transform helpers have no caller on the frontend's path and are not ported.
+they combine with either. The image-scale remap (``undistort_rectify_map``,
+``undistort_image``) is torch only: that work belongs on the device.
 """
 
 from typing import NamedTuple
@@ -110,3 +109,65 @@ def undistort_points(cam: PinholeCamera, px, iters=5):
         y = (pdy - dy) / rr
     xy = xp.stack([x, y], axis=-1)
     return cam2pixel(cam, xp.concatenate([xy, xp.ones_like(xy[..., :1])], axis=-1))
+
+
+def world2cam(R, t, pw):
+    """pc = R^T (pw - t) (camera.cc:145-147)."""
+    return _ns(pw).einsum("...ji,...j->...i", R, pw - t)
+
+
+def cam2world(R, t, pc):
+    return _ns(pc).einsum("...ij,...j->...i", R, pc) + t
+
+
+def world2pixel(cam: PinholeCamera, R, t, pw):
+    return cam2pixel(cam, world2cam(R, t, pw))
+
+
+def reprojection_error(cam: PinholeCamera, R, t, pw, px_undistorted):
+    """Pixel reprojection error of an undistorted observation (camera.cc:153-157)."""
+    return world2pixel(cam, R, t, pw) - px_undistorted
+
+
+def pixel2unitcam(cam: PinholeCamera, px):
+    """Pixel -> unit-norm camera ray (camera.cc:135-137)."""
+    pc = pixel2cam(cam, px)
+    if isinstance(pc, torch.Tensor):
+        return pc / torch.linalg.norm(pc, dim=-1, keepdim=True)
+    return pc / np.linalg.norm(pc, axis=-1, keepdims=True)
+
+
+def pixel2world(cam: PinholeCamera, R, t, px):
+    """Pixel -> world-frame point of the z=1 camera ray (camera.cc:139-143)."""
+    return cam2world(R, t, pixel2cam(cam, px))
+
+
+def undistort_rectify_map(cam: PinholeCamera, device="cuda"):
+    """(H, W, 2) float32 sampling map: for each undistorted output pixel, the
+    source pixel in the distorted image (the initUndistortRectifyMap table,
+    camera.cc:45). Constant per camera: compute once."""
+    v, u = torch.meshgrid(torch.arange(cam.height, dtype=torch.float32, device=device),
+                          torch.arange(cam.width, dtype=torch.float32, device=device), indexing="ij")
+    return distort_points(cam, torch.stack([u, v], dim=-1))
+
+
+def undistort_image(img, src_map):
+    """Bilinear remap of a distorted image onto the undistorted grid with a
+    zero border (Camera::undistortImage, camera.cc:119-121). img (H, W),
+    src_map from undistort_rectify_map; each of the four taps outside the
+    image reads zero."""
+    h, w = img.shape
+    x, y = src_map[..., 0], src_map[..., 1]
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0, y - y0
+    x0i, y0i = x0.to(torch.int64), y0.to(torch.int64)
+
+    def tap(yi, xi):
+        inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        val = img[yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
+        return torch.where(inside, val, torch.zeros_like(val))
+
+    return (tap(y0i, x0i) * (1 - fx) * (1 - fy)
+            + tap(y0i, x0i + 1) * fx * (1 - fy)
+            + tap(y0i + 1, x0i) * (1 - fx) * fy
+            + tap(y0i + 1, x0i + 1) * fx * fy)

@@ -373,6 +373,15 @@ class Tracker:
     # stages
     # ------------------------------------------------------------------
 
+    def track_mappoints(self):
+        """tracking.cc:351-455 (standalone path; the normal frame loop runs
+        the fused prepare/finish halves around one LK batch)."""
+        prep = self._prepare_mappoint_tracking()
+        if prep is None:
+            return False
+        [(nxt, ok, und)] = self._lk_fused([(prep[1], prep[3])])
+        return self._finish_mappoint_tracking(prep, nxt, ok, und)
+
     def _prepare_mappoint_tracking(self):
         """tracking.cc:351-455, the half before the fused LK batch."""
         self.tracked_mappoints = []

@@ -117,9 +117,11 @@ def test_port_imports_no_jax_or_yaml():
          ("ops", ("clahe", "lk", "subpix")),
          ("io", ("dataset",)),
          ("utils", ("logger", "timecost"))) for m in ms]
-    # the runner and chip_smoke.py too (imported as modules: their work runs
-    # under their __main__ checks)
-    scripts = [str(REPO / "scripts" / "run_gvins_torch.py"), str(REPO / "chip_smoke.py")]
+    # the runner, the four measurement scripts and chip_smoke.py too
+    # (imported as modules: their work runs under their __main__ checks)
+    scripts = [str(REPO / "scripts" / f"{name}.py") for name in (
+        "run_gvins_torch", "bench_frontend_stages_torch", "profile_replay_sections_torch",
+        "bench_replay_host_torch", "bench_production_torch")] + [str(REPO / "chip_smoke.py")]
     code = ("import importlib, importlib.util, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             f"for i, path in enumerate({scripts!r}):\n"
