@@ -2,8 +2,8 @@
 """Drive the PyTorch port on one NVIDIA GPU (H100): its visual frontend, its
 GNSS/INS replay (with and without the wheel odometer), its
 GNSS-visual-inertial replay, from memory and from files, its batched
-forms over a device mesh and its checkpoint, its user functions and its
-measurement scripts.
+forms over a device mesh and its checkpoint, its user functions, its
+measurement scripts, and the replay with extrinsic and td estimation on.
 
 Run from the repository root, with no arguments:
 
@@ -107,10 +107,43 @@ of JAX. Phases, in order; any failure raises and the script exits nonzero:
    its gates (TRACKING_NORMAL, ATE RMSE < 0.25 m); each script with the
    launch counters set to 0 just before it and read just after, every
    kernel launched, its record in build/phase10_*.json.
+11. ``GvinsModel`` with extrinsic and td estimation on (``estimation_phase``):
+   the drifted-clock world of tests/test_td_estimation.py (``td_world``: its
+   36 s drive, 320x240 frames exposed 30 ms after their stamps, td from 0)
+   with that test's gates (TRACKING_NORMAL, |td - 0.03| < 0.012 s, max td >
+   0.015 s, > 30 nodes, all finite), the td after every episode and the
+   adoptions; the hard-cadence stability world of
+   tests/test_gvins_stability_e2e.py (``stability_world``, cut from 300 s to
+   STAB_DURATION = 90 s: 160x120 frames, a keyframe on most frames, GNSS
+   removed over [40.5, 60.5) s) with that test's seven gates at their
+   duration-scaled thresholds (``stability_gates``), the episodes,
+   marginalizations, bridge error and the device busy share over three
+   profiled episodes; the JAX tests' hooks on the model's own methods
+   (``EstimationLog``); each kernel held against its plain version on a
+   frame pair of each world, its counter set to 0 just before each replay
+   and read just after; then both worlds on the card against the CPU (this
+   script as a child process, ``--estimation-cpu-twins``): the td world's
+   final state, and the stability world's frames before STAB_TWIN_UNTIL s
+   up to the first frame at which the two part, printed with what differs
+   there (``first_parting``). A gate the JAX package fails alike is printed
+   and left standing: a replay stopped by the marg_cap refusal (NOT MET
+   after the stop, ROADMAP R1), time-consistency violations that are all
+   the 1e-4 s sample snap of ``ImuStream.series`` (R4), and, where the
+   stability replay reaches the end, the gates in ``STAB_JAX_F64_FAILS``,
+   which the JAX package's own replay of that world fails at the port's
+   precision (f64 solve, sync dispatch) at a drive of its test's own
+   ICGVINS_STAB_DURATION or in one of its CPU configurations (R5, R6). The
+   phase starts with ``scatter_check``: the assembly's scatter is
+   repeatable on the card. ``python3 chip_smoke.py --scatter-ab`` times
+   phase 7's small replay with that scatter and with ``index_add`` in turns. ``python3 chip_smoke.py --stab-parting OUT_DIR
+   [SECONDS [VARIANT,...]]`` replays the stability world on the card twice
+   as phase 11 does, once in each other variant (under torch's
+   deterministic algorithms, with the plain kernels), and on the CPU, and
+   prints where each pair parts (``stability_parting``).
 
 Each phase prints its seconds. The kernels' ``launches`` are phase 8's
 replay's (``launches_by_path`` keeps phase 4's, phase 7's, phase 9's
-batched frame's and phase 10's scripts' too).
+batched frame's, phase 10's scripts' and phase 11's two replays' too).
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. The helpers take the port's modules as
@@ -987,11 +1020,18 @@ SMALL_RAW = dict(GVINS_RAW, iswithearth=False, optimize_windows_size=8, node_slo
                  gnss_slots=20, reproj_slots=1024, track_max_features=120)
 
 
-def gvins_config(parse_config, truth, raw, camera_cfg):
+def gvins_raw(truth, raw, camera_cfg):
+    """The configuration dict ``raw`` with the drive's lever arm and the
+    camera ``camera_cfg`` (intrinsic, distortion, resolution) at the body,
+    its clock believed in step (td_b_c 0)."""
     intrinsic, distortion, resolution = camera_cfg
-    return parse_config(dict(raw, antlever=list(truth["lever"]), cam0=dict(
+    return dict(raw, antlever=list(truth["lever"]), cam0=dict(
         intrinsic=intrinsic, distortion=distortion, resolution=resolution,
-        q_b_c=[0.0, 0.0, 0.0, 1.0], t_b_c=[0.0, 0.0, 0.0], td_b_c=0.0)))   # camera = body (FRD, z down)
+        q_b_c=[0.0, 0.0, 0.0, 1.0], t_b_c=[0.0, 0.0, 0.0], td_b_c=0.0))   # camera = body (FRD, z down)
+
+
+def gvins_config(parse_config, truth, raw, camera_cfg):
+    return parse_config(gvins_raw(truth, raw, camera_cfg))
 
 
 def ground_frame(cam_mod, camera, pts_w, Rcw, tcw, sigma, half):
@@ -1406,11 +1446,14 @@ def check_world_files(dataset, paths, imu, gnss, frame_times, frame):
     return provider
 
 
-def long_kernel_checks(torch, modules, provider, cfg, camera):
-    """Each kernel against its plain version on three frames of the long
-    world as the replay reads them (a normal pair, a glitch frame, a
-    blackout frame), at the tracker's statics for 160x120, with phase 3's
-    tolerances."""
+def long_kernel_checks(torch, modules, provider, cfg, camera, checked=LONG_CHECKED, min_joints=None,
+                       label="long"):
+    """Each kernel against its plain version on frames of a world as the
+    replay reads them, at the tracker's statics for its camera, with phase 3's
+    tolerances: by default three frames of the long world (a normal pair, a
+    glitch frame, a blackout frame). ``checked`` maps a tag to (previous,
+    checked) frame indices, ``min_joints`` a tag to the fewest slots LK must
+    track both ways."""
     kclahe, klk, ksubpix, pyramid, feat, trk, vmap_mod = modules
     tracker = trk.Tracker(camera, vmap_mod.VisualMap(cfg.optimize_windows_size), cfg, device=DEVICE)
     br, bc, per, dist = tracker._detect_static
@@ -1422,20 +1465,20 @@ def long_kernel_checks(torch, modules, provider, cfg, camera):
                                         block_rows=br, block_cols=bc, per_block=per, min_distance=dist)
         return c.contiguous(), v.contiguous()
 
-    for tag, (kp, kf) in LONG_CHECKED.items():
+    for tag, (kp, kf) in checked.items():
         ip, i_f = img(kp), img(kf)
-        check_clahe(kclahe, f"long {tag} frame {kf}", pyramid.clahe_tables(i_f))
+        check_clahe(kclahe, f"{label} {tag} frame {kf}", pyramid.clahe_tables(i_f))
         pyr_p, pyr_f = pyramid.build_pyramid(pyramid.clahe(ip)), pyramid.build_pyramid(pyramid.clahe(i_f))
         c, v = detect(pyr_p[0])
         # ~16 blobs in view at 160x120; the glitch's step in brightness loses most tracks
-        min_joint = {"normal": 5, "glitch": 0, "featureless": 0}[tag]
+        min_joint = (min_joints or {"normal": 5, "glitch": 0, "featureless": 0})[tag]
         for n in (1, 2):
-            check_lk(torch, klk, f"long {tag} frames {kp}->{kf}", (pyr_p, pyr_f, c, c, v), n, min_joint)
+            check_lk(torch, klk, f"{label} {tag} frames {kp}->{kf}", (pyr_p, pyr_f, c, c, v), n, min_joint)
         cf, vf = detect(pyr_f[0])
         src = kf
         if int(vf.sum()) < 8:        # nothing to detect: refine the previous frame's corners on it
             cf, vf, src = c, v, kp
-        check_subpix(torch, ksubpix, f"long {tag} frame {kf} (corners of frame {src})", (pyr_f[0], cf, vf))
+        check_subpix(torch, ksubpix, f"{label} {tag} frame {kf} (corners of frame {src})", (pyr_f[0], cf, vf))
 
 
 def long_phase(torch, card, wrappers):
@@ -2260,6 +2303,840 @@ def script_phase(torch, card, wrappers):
     return by_script
 
 
+# --------------------------------------------------------------------------
+# phase 11: GvinsModel with extrinsic and td estimation on: the drifted-clock
+# world of tests/test_td_estimation.py and the hard-cadence stability world
+# of tests/test_gvins_stability_e2e.py
+# --------------------------------------------------------------------------
+
+TD_TRUE = 0.03                   # s: the td world's images are exposed this long after their stamps
+TD_TURN = 30.0                   # s: the td world's turn (a 36 s drive)
+# tests/test_td_estimation.py:32-61 (its camera is SMALL_CAMERA, q_b_c identity,
+# t_b_c 0, td_b_c 0: the estimator starts believing there is no delay)
+TD_RAW = dict(initlength=3, imudatarate=200, iswithearth=False,
+              imumodel=dict(arw=0.1, vrw=0.1, gbstd=400.0, abstd=400.0, corrtime=1.0), gnssthreshold=20,
+              optimize_windows_size=8, optimize_num_iterations=20, optimize_estimate_extrinsic=False,
+              optimize_estimate_td=True, track_min_parallax=20, track_max_interval=0.5, track_max_features=120,
+              reprojection_error_std=1.5, node_slots=20, landmark_slots=256, gnss_slots=20, reproj_slots=1024)
+STAB_DURATION = 90.0             # s: the stability world's drive here (cut from the JAX test's 300 s)
+STAB_CAMERA, STAB_BLOB = LONG_CAMERA, LONG_BLOB   # the same 160x120 camera and renderer as the long world's
+# tests/test_gvins_stability_e2e.py:74-104 (its camera is STAB_CAMERA): both
+# estimations on, a keyframe on most parallax-bearing frames
+STAB_RAW = dict(initlength=3, imudatarate=200, iswithearth=False,
+                imumodel=dict(arw=0.1, vrw=0.1, gbstd=400.0, abstd=400.0, corrtime=1.0), gnssthreshold=20,
+                optimize_windows_size=10, optimize_num_iterations=20, optimize_estimate_extrinsic=True,
+                optimize_estimate_td=True, track_min_parallax=8, track_max_interval=0.5, track_max_features=80,
+                reprojection_error_std=1.5, node_slots=20, landmark_slots=256, gnss_slots=20, reproj_slots=1024)
+STAB_PROFILED = (100, 103)       # keyframe episodes run under torch.profiler (the busy share)
+# gates of that test the JAX package's own replay of this world fails at the
+# port's precision (its f64 solve, sync dispatch) at a drive of the test's own
+# ICGVINS_STAB_DURATION (tests/test_torch_stability.py::test_jax_stability_spread,
+# ROADMAP R5, R6): where the port's replay reaches the end and fails one of
+# them, the failure is printed and left standing
+STAB_JAX_F64_FAILS = {
+    "marginalizations": "the JAX package's replay of this world at f64 with sync dispatch counts fewer than its "
+                        "test asks at 120, 180 and 300 s (29 of 40, 32 of 60, 52 of 100) and, through its other "
+                        "CPU level tracker (ICGVINS_LK=gather), stops at the marg_cap refusal after 59.13 s of 90 s "
+                        "(ROADMAP R6)",
+    "|t_b_c| m": "the extrinsic is not observable on this world and its gate lets it walk: the JAX package's replay "
+                 "at f64 with sync dispatch ends at 1.026 m at 120 s and stands at 1.452 m at its refusal in the "
+                 "150 s drive (0.371 m at 90 s, 0.372 m at 300 s; ROADMAP R5)",
+}
+TD_CUDA_CPU_TOL = 1e-5           # s: the td world's final td, CUDA against CPU (positions: GVINS_CUDA_CPU_TOL)
+STAB_TWIN_UNTIL = 35.0           # s: the stability world's CPU twin replays the frames before this stamp
+STAB_CUDA_CPU_TOL = 1e-3         # m: its episode positions, CUDA against CPU, before the replays part
+
+
+def td_world(cam_mod, rot_np, turn_duration=TD_TURN):
+    """A copy of tests/test_td_estimation.py's world without jax: the drive
+    of ``gins_world(turn_duration=turn_duration)`` (earth off; 30 s there, a
+    36 s drive), tests/test_gvins_e2e.py's 320x240 camera and 800 ground
+    points (``e2e_scene``), frames at 10 Hz from 0.05 s to 0.25 s before the
+    drive's end whose images show the true pose TD_TRUE after their stamps
+    (the camera's clock 30 ms behind). Returns (imu, gnss, truth,
+    frame_times, frame) with frame(k) the (H, W) f64 image of frame k."""
+    imu, gnss, truth = gins_world(turn_duration=turn_duration, seed=SEED)
+    camera = cam_mod.PinholeCamera.from_config(*SMALL_CAMERA)
+    pts_w = e2e_scene()
+    frame_times = np.arange(0.05, imu["time"][-1] - 0.25, 0.1)
+
+    def frame(k):
+        i = min(int(round((frame_times[k] + TD_TRUE) * 200.0)) - 1, len(truth["p"]) - 1)
+        return ground_frame(cam_mod, camera, pts_w, rot_np.to_matrix(truth["q"][i]), truth["p"][i], *SMALL_BLOB)
+    return imu, gnss, truth, frame_times, frame
+
+
+def stab_outage(duration):
+    """tests/test_gvins_stability_e2e.py's GNSS outage: 20 s from 0.45 of the drive."""
+    return 0.45 * duration, 0.45 * duration + 20.0
+
+
+def stability_world(cam_mod, rot_np, duration=STAB_DURATION):
+    """A copy of tests/test_gvins_stability_e2e.py's world without jax: the
+    drive of ``gins_world(turn_duration=duration - 6)`` (earth off) with its
+    GNSS fixes in ``stab_outage(duration)`` removed, 9000 ground points 9-13
+    m below from default_rng(11) over [-90, 150]^2 m, frames at 10 Hz of the
+    160x120 camera (FX 125, radtan [-0.05, 0.01, 0, 0]) at the true body
+    pose, rendered as that test's ``_render`` renders them (``ground_frame``
+    with sigma 1.6 px cut at 5 px: +-80 gray blobs at the distorted
+    projections over 90 gray). Returns (imu, gnss, truth, frame_times,
+    frame)."""
+    imu, gnss, truth = gins_world(turn_duration=duration - 6.0, seed=SEED)
+    lo, hi = stab_outage(duration)
+    keep = ~((gnss["time"] >= lo) & (gnss["time"] < hi))
+    gnss = {k: v[keep] for k, v in gnss.items()}
+    rng = np.random.default_rng(11)
+    n_pts = 9000
+    pts_w = np.stack([rng.uniform(-90, 150, n_pts), rng.uniform(-90, 150, n_pts), rng.uniform(9, 13, n_pts)], axis=1)
+    camera = cam_mod.PinholeCamera.from_config(*STAB_CAMERA)
+    frame_times = np.arange(0.05, imu["time"][-1] - 0.2, 0.1)
+
+    def frame(k):
+        i = min(int(round(frame_times[k] * 200.0)) - 1, len(truth["p"]) - 1)
+        return ground_frame(cam_mod, camera, pts_w, rot_np.to_matrix(truth["q"][i]), truth["p"][i], *STAB_BLOB)
+    return imu, gnss, truth, frame_times, frame
+
+
+class EstimationLog:
+    """The JAX tests' hooks on one model, wrapped on the instance so that
+    the class runs unmodified (tests/test_gvins_stability_e2e.py:130-160,
+    tests/test_td_estimation.py:83-89): frames, keyframe episodes and
+    marginalizations counted (``counts``); the state and node count after
+    every processed frame (``states``); for every episode the frames
+    processed so far, the newest node's time, the GNSS fixes in the window
+    and the reprojection rows packed (``episodes``);
+    ``est.check_time_consistency`` after
+    every ``_optimize_visual`` (``failures``: (episode, messages, whether
+    ``snapped_only``) where it found a violation); after every
+    ``_update_from_optimizer`` the adopted td (``tds``) and the gates'
+    decisions (``decisions``: (td, extrinsic), each True for adopted, False
+    for refused, None where the gate did not run), and where the extrinsic
+    gate runs the size of the solved translation it judges
+    (``ext_estimates``, m). Works on the port's
+    ``GvinsModel`` and the JAX package's alike (their update methods take
+    ``(slots)`` and ``(params, slots)``)."""
+
+    def __init__(self, model):
+        self.counts = dict(frames=0, episodes=0, margs=0)
+        self.states, self.failures, self.tds, self.decisions, self.episodes = [], [], [], [], []
+        self.ext_estimates = []
+        frame, optimize, marg, update, build = (model._process_frame, model._optimize_visual,
+                                                model._marginalize_visual_impl, model._update_from_optimizer,
+                                                model._build_reproj_table)
+
+        def counting_frame(stream, stamp, image):
+            self.counts["frames"] += 1
+            out = frame(stream, stamp, image)
+            self.states.append((model.state, model.est.n_nodes if model.est else 0))
+            return out
+
+        def checking_opt():
+            self.counts["episodes"] += 1
+            rows = []
+
+            def counted(slots):
+                table, n = build(slots)
+                rows.append(int(n))
+                return table, n
+            model._build_reproj_table = counted
+            try:
+                out = optimize()
+            finally:
+                model._build_reproj_table = build
+            est = model.est
+            self.episodes.append((self.counts["frames"], float(est.times[est.n_nodes - 1]), len(est.gnss_entries),
+                                  sum(rows)))
+            msgs = model.est.check_time_consistency(where=f"episode {self.counts['episodes']}")
+            if msgs:
+                self.failures.append((self.counts["episodes"], msgs, snapped_only(model.est)))
+            return out
+
+        def counting_marg():
+            self.counts["margs"] += 1
+            return marg()
+
+        def recording_update(*args):
+            cfg, normal = model.cfg, model.state == "TRACKING_NORMAL"
+            td0, t0 = model.td_b_c, np.array(model.pose_b_c_t, copy=True)
+            if cfg.optimize_estimate_extrinsic and normal:     # the solved extrinsic the gate judges
+                ext = args[0].ext if len(args) == 2 else model.est.ext
+                self.ext_estimates.append(float(np.linalg.norm(np.asarray(ext)[:3])))
+            out = update(*args)
+            self.tds.append(float(model.td_b_c))
+            self.decisions.append((model.td_b_c != td0 if cfg.optimize_estimate_td and normal else None,
+                                   not np.array_equal(model.pose_b_c_t, t0)
+                                   if cfg.optimize_estimate_extrinsic and normal else None))
+            return out
+
+        model._process_frame, model._optimize_visual = counting_frame, checking_opt
+        model._marginalize_visual_impl, model._update_from_optimizer = counting_marg, recording_update
+
+    def adoptions(self):
+        """(td, extrinsic) adoptions and refusals: {"td": (adopted, refused), ...}."""
+        return {name: (sum(d[i] is True for d in self.decisions), sum(d[i] is False for d in self.decisions))
+                for i, name in enumerate(("td", "extrinsic"))}
+
+
+def snapped_only(est):
+    """Whether every interval that ``est.check_time_consistency`` flags is
+    valid, ends on its node and differs from its node gap by at most
+    1e-4 s: the IMU sample that ``ImuStream.series`` takes whole when a node
+    lies within MINIMUM_TIME_INTERVAL (1e-4 s) of it (engine/replay.py, as
+    the reference's getImuSeriesFromTo, misc.cc:307-361, and the JAX
+    package's ImuStream take it), while the check allows 1e-6 s. A node
+    stamped frame time + td lands there once td is not a whole number of
+    IMU periods (ROADMAP R4)."""
+    dts, ends, valid = est.preint_table.summ.dt, est.preint_table.summ.end_time, est.preint_table.valid
+    for k in range(est.n_nodes - 1):
+        gap = est.times[k + 1] - est.times[k]
+        if valid[k] != 1.0 or abs(ends[k] - est.times[k + 1]) > 1e-6 or abs(dts[k] - gap) > 1e-4 + 1e-9:
+            return False
+    return all(valid[k] == 0.0 for k in range(max(est.n_nodes - 1, 0), est.wcfg.P))
+
+
+class PartingTrace:
+    """One record a frame of a replay, for finding where two replays of one
+    world part (``first_parting``): the frame's stamp, whether it was
+    tracked, the model's state and node count after it, the keyframe
+    decision and the parallax behind it, the tracked landmarks' ids and
+    distorted pixels, td and t_b_c, the newest trajectory row where the
+    frame ran an episode and the size of the extrinsic translation its solve
+    returned, the window slides so far (``_marginalize_visual``
+    and the node-capacity sheds), and for an episode each landmark's
+    reprojection errors (px) over its keyframe observations as the outlier
+    culling judges them and the landmarks it culled. Landmark ids count
+    from the model's first, so that replays in one process compare. Install
+    after the ``EstimationLog``."""
+
+    def __init__(self, model):
+        from ic_gvins_tpu_torch.vision import camera as cam
+        from ic_gvins_tpu_torch.vision.map import Landmark
+
+        self.rows, base = [], Landmark._next_id
+        process, cull = model._process_frame, model._visual_outlier_culling
+        episode = {}
+
+        def judged(slots):
+            errs = {}
+            for lm_id in slots:
+                lm = model.vmap.landmarks.get(lm_id)
+                if lm is None or lm.outlier:
+                    continue
+                obs = [o for o in lm.observations
+                       if not o.outlier and o.frame.is_keyframe and model.vmap.is_keyframe_in_map(o.frame)]
+                pc = [o.frame.R.T @ (lm.pos - o.frame.t) for o in obs]
+                errs[lm_id - base] = [float(np.linalg.norm(cam.cam2pixel(model.camera, p) - o.undis))
+                                      for p, o in zip(pc, obs)]
+            out = cull(slots)
+            episode.update(errs=errs, culled=sorted(i for i in errs if base + i not in model.vmap.landmarks))
+            return out
+        model._visual_outlier_culling = judged
+
+        def traced(stream, stamp, image):
+            trk, cur, n_traj = model.tracker, model.tracker.frame_cur, len(model.trajectory)
+            out = process(stream, stamp, image)
+            tracked = trk.frame_cur is not cur
+            feats = trk.frame_cur.features if tracked else {}
+            ids = np.array(sorted(feats), np.int64)
+            dis = np.array([feats[i].dis for i in ids], np.float64).reshape(-1, 2)
+            kf = bool(tracked and trk.is_new_keyframe)
+            self.rows.append(dict(
+                stamp=float(stamp), tracked=tracked, state=model.state, n_nodes=model.est.n_nodes if model.est else 0,
+                kf=kf,
+                parallax=float(trk.logging_row[2]) if kf and trk.logging_row else float("nan"), ids=ids - base,
+                dis=dis, td=float(model.td_b_c),
+                t_b_c=np.array(model.pose_b_c_t, np.float64),
+                traj=np.array(model.trajectory[-1], np.float64) if len(model.trajectory) > n_traj else None,
+                ext_solved=float(np.linalg.norm(np.asarray(model.est.ext)[:3]))
+                if len(model.trajectory) > n_traj else None,
+                slides=sum(model.tier_counts_marg.values()), errs=episode.pop("errs", None),
+                culled=episode.pop("culled", [])))
+            return out
+        model._process_frame = traced
+
+
+def first_parting(a, b):
+    """The first frame at which two ``PartingTrace`` records part: a frame
+    tracked in one only, another state, node count, keyframe decision,
+    set of tracked landmarks, episode, window slide or td/extrinsic
+    adoption. Returns (frame index or None, what differs there, the largest
+    differences before it (pixels of common landmarks, episode positions,
+    td), the two rows there)."""
+    before = dict(px=0.0, pos_m=0.0, td_s=0.0)
+    for k, (ra, rb) in enumerate(zip(a, b)):
+        diff = [name for name in ("stamp", "tracked", "state", "n_nodes", "kf", "slides") if ra[name] != rb[name]]
+        if not np.array_equal(ra["ids"], rb["ids"]):
+            diff.append("landmarks")
+        if (ra["traj"] is None) != (rb["traj"] is None):
+            diff.append("episode")
+        if k and ((ra["td"] != a[k - 1]["td"]) != (rb["td"] != b[k - 1]["td"])):
+            diff.append("td adoption")
+        if k and (not np.array_equal(ra["t_b_c"], a[k - 1]["t_b_c"])) != (
+                not np.array_equal(rb["t_b_c"], b[k - 1]["t_b_c"])):
+            diff.append("extrinsic adoption")
+        if diff:
+            return k, diff, before, (ra, rb)
+        if len(ra["ids"]):
+            before["px"] = max(before["px"], float(np.abs(ra["dis"] - rb["dis"]).max()))
+        if ra["traj"] is not None:
+            before["pos_m"] = max(before["pos_m"], float(np.abs(ra["traj"][1:4] - rb["traj"][1:4]).max()))
+        before["td_s"] = max(before["td_s"], abs(ra["td"] - rb["td"]))
+    return None, [], before, None
+
+
+def describe_parting(name_a, name_b, a, b, min_parallax):
+    """``first_parting`` of two traces as one printable line."""
+    k, diff, before, rows = first_parting(a, b)
+    if k is None:
+        return f"{name_a} / {name_b}: no parting over {min(len(a), len(b))} frames (before the end: {before})"
+    ra, rb = rows
+    what = []
+    if "kf" in diff:
+        what.append(f"keyframe {ra['kf']} / {rb['kf']} at parallax {ra['parallax']:.6f} / {rb['parallax']:.6f} px "
+                    f"(threshold {min_parallax})")
+    if "landmarks" in diff:
+        only_a, only_b = np.setdiff1d(ra["ids"], rb["ids"]), np.setdiff1d(rb["ids"], ra["ids"])
+        what.append(f"landmarks {len(ra['ids'])} / {len(rb['ids'])} (only in {name_a}: {only_a.tolist()[:6]}, "
+                    f"only in {name_b}: {only_b.tolist()[:6]})")
+        for i in [*only_a.tolist(), *only_b.tolist()][:4]:
+            judged = [(r["errs"] or {}).get(i) for r in rows]
+            if any(e is not None for e in judged):
+                what.append(f"landmark {i}: culled {[i in r['culled'] for r in rows]}, reprojection errors "
+                            f"{[np.round(e, 4).tolist() if e else e for e in judged]} px (culled above "
+                            f"{STAB_RAW['reprojection_error_std'] * 3:g} px on one or a mean above "
+                            f"{STAB_RAW['reprojection_error_std']:g} px)")
+    if ra["ext_solved"] is not None and rb["ext_solved"] is not None:
+        what.append(f"the episode's solved |t_b_c| {ra['ext_solved']:.4f} / {rb['ext_solved']:.4f} m (adopted "
+                    f"{np.linalg.norm(ra['t_b_c']):.4f} / {np.linalg.norm(rb['t_b_c']):.4f} m)")
+    if "td adoption" in diff:
+        what.append(f"td {a[k - 1]['td']:.9f} -> {ra['td']:.9f} / {b[k - 1]['td']:.9f} -> {rb['td']:.9f} s")
+    if "extrinsic adoption" in diff:
+        what.append(f"|t_b_c| {np.linalg.norm(ra['t_b_c']):.6f} / {np.linalg.norm(rb['t_b_c']):.6f} m")
+    if "slides" in diff:
+        what.append(f"slides {ra['slides']} / {rb['slides']}")
+    return (f"{name_a} / {name_b}: part at frame {k} ({ra['stamp']:.2f} s) on {diff}: {'; '.join(what)}; before "
+            f"it at most {before['px']:.3g} px apart on common landmarks, episode positions {before['pos_m']:.3g} m, "
+            f"td {before['td_s']:.3g} s")
+
+
+def stab_errs(traj, truth, t_lo=0.0, t_hi=1e9, exclude=()):
+    """tests/test_gvins_stability_e2e.py's ``_errs``: the position errors of
+    the trajectory rows stamped in [t_lo, t_hi] and outside each excluded
+    window widened by 2 s before and 3 s after."""
+    offset = truth["gnss_local"][0]
+    errs = []
+    for row in traj:
+        t, p = row[0], np.asarray(row[1:4])
+        if not (t_lo <= t <= t_hi) or any(lo - 2.0 <= t <= hi + 3.0 for lo, hi in exclude):
+            continue
+        i = int(round(t * 200.0)) - 1
+        if 0 <= i < len(truth["p"]):
+            errs.append(np.linalg.norm(p + offset - truth["p"][i]))
+    return np.asarray(errs)
+
+
+def stability_gates(model, traj, truth, counts, failures, duration):
+    """The seven tests of tests/test_gvins_stability_e2e.py as gates, their
+    thresholds scaled to a drive of ``duration`` s as there: [(test, name,
+    value, limit, met, needs)], ``needs`` the stamp a replay must pass
+    before a gate that is not met can be judged (0 for a gate judged on any
+    span)."""
+    outage, scale, end = stab_outage(duration), duration / 300.0, duration - 5.0
+    last = float(traj[-1][0]) if len(traj) else float("nan")
+    outside = stab_errs(traj, truth, t_lo=8.0, exclude=(outage,))
+    tail = stab_errs(traj, truth, t_lo=0.9 * duration)
+    bridge = stab_errs(traj, truth, t_lo=outage[0], t_hi=outage[1] + 2.0)
+    top = lambda e, f: float(f(e)) if len(e) else float("nan")  # noqa: E731
+    rot = float(np.degrees(np.arccos(np.clip(0.5 * (np.trace(model.pose_b_c_R) - 1.0), -1, 1))))
+    t_norm = float(np.linalg.norm(model.pose_b_c_t))
+    frames = max(counts["frames"], 1)
+    kf_ratio, marg_ratio = counts["episodes"] / frames, counts["margs"] / frames
+    return [
+        ("survives_full_horizon", "state at the end", model.state, "TRACKING_NORMAL",
+         model.state == "TRACKING_NORMAL", end),
+        ("survives_full_horizon", "last node s", last, f"> {end:g}", last > end, end),
+        ("hundreds_of_window_slides", "keyframe episodes", counts["episodes"], f">= {400 * scale:g}",
+         counts["episodes"] >= 400 * scale, end),
+        ("hundreds_of_window_slides", "marginalizations", counts["margs"], f">= {100 * scale:g}",
+         counts["margs"] >= 100 * scale, end),
+        ("bounded_error_over_horizon", "nodes outside the outage", len(outside), "> 100", len(outside) > 100, end),
+        ("bounded_error_over_horizon", "mean error outside the outage m", top(outside, np.mean), "< 0.3",
+         top(outside, np.mean) < 0.3, 0.0),
+        ("bounded_error_over_horizon", "mean error in the last tenth m", top(tail, np.mean), "< 0.3",
+         top(tail, np.mean) < 0.3, end),
+        ("outage_bridged", "bridge nodes", len(bridge), "> 3", len(bridge) > 3, outage[1] + 2.0),
+        ("outage_bridged", "bridge max error m", top(bridge, np.max), "< 3.0", top(bridge, np.max) < 3.0,
+         outage[1] + 2.0),
+        ("td_extrinsic_drift_bounded", "|td| s", abs(model.td_b_c), "<= 0.081", abs(model.td_b_c) <= 0.081, 0.0),
+        ("td_extrinsic_drift_bounded", "|t_b_c| m", t_norm, "< 0.5", t_norm < 0.5, 0.0),
+        ("td_extrinsic_drift_bounded", "R_b_c angle deg", rot, "< 5", rot < 5.0, 0.0),
+        ("time_consistency_every_episode", "episodes with violations", len(failures), "== 0", not failures, 0.0),
+        ("cadence_floors_hold", "kf_ratio", kf_ratio, "<= 0.5", kf_ratio <= 0.5, 0.0),
+        ("cadence_floors_hold", "marg_ratio", marg_ratio, "<= 0.5", marg_ratio <= 0.5, 0.0),
+    ]
+
+
+def judge(tag, gates, stop, standing=None):
+    """Prints each gate as ok, FAILED or, where a replay stopped at ``stop``
+    before the stamp a gate needs, NOT MET; a failed gate named in
+    ``standing`` (name: reason) prints FAILED with its reason and is left
+    standing. Returns (failed, not met or left standing)."""
+    failed, not_reached = [], []
+    for test, name, value, limit, ok, needs in gates:
+        if ok:
+            verdict = "ok"
+        elif stop is not None and stop < needs:
+            verdict = f"NOT MET (the replay stopped at {stop:.2f} s, before {needs:.1f} s)"
+            not_reached.append(name)
+        elif name in (standing or {}):
+            verdict = f"FAILED, left standing: {standing[name]}"
+            not_reached.append(name)
+        else:
+            verdict = "FAILED"
+            failed.append(name)
+        print(f"[{tag}] gate {test}: {name} {value} (limit {limit}) {verdict}")
+    return failed, not_reached
+
+
+def td_gates(model, traj, tds):
+    """tests/test_td_estimation.py's gates: [(test, name, value, limit, met,
+    needs)] as ``stability_gates``."""
+    tds = np.asarray(tds, np.float64)
+    peak = float(tds.max()) if len(tds) else float("nan")
+    return [("td_converges_to_true_offset", "state at the end", model.state, "TRACKING_NORMAL",
+             model.state == "TRACKING_NORMAL", 1e9),
+            ("td_converges_to_true_offset", "|td - 0.03| s", abs(model.td_b_c - TD_TRUE), "< 0.012",
+             abs(model.td_b_c - TD_TRUE) < 0.012, 1e9),
+            ("td_converges_to_true_offset", "max td s", peak, "> 0.015", peak > 0.015, 1e9),
+            ("td_trajectory_still_converges", "trajectory nodes", len(traj), "> 30", len(traj) > 30, 1e9),
+            ("td_trajectory_still_converges", "all finite", bool(np.isfinite(traj).all()), "True",
+             bool(np.isfinite(traj).all()), 0.0)]
+
+
+def estimation_run(torch, device, cfg, imu, gnss, frame_times, images, profiled=None, trace=False):
+    """The port's GvinsModel on ``device`` over a world with an
+    ``EstimationLog`` and a ``FrameLog`` (a torch.profiler window over the
+    keyframe episodes ``profiled``), and with ``trace`` a ``PartingTrace``;
+    a refusal of a slide of more than
+    marg_cap nodes (the JAX package's, taken over unchanged) stops the run
+    and is returned. Returns a namespace: model, log, frames (the FrameLog),
+    trace (the PartingTrace's rows or None),
+    traj (the model's trajectory rows), wall seconds, refused (None or the
+    error), stop (the stamp of the last frame finished where refused)."""
+    import types
+
+    from ic_gvins_tpu_torch.engine.host import fetch
+    from ic_gvins_tpu_torch.models import gvins as gvins_mod
+
+    refused = None
+    with FrameLog(torch, gvins_mod, fetch, profiled) as frames:
+        model = gvins_mod.GvinsModel(cfg, device=device)
+        log = EstimationLog(model)
+        traced = PartingTrace(model) if trace else None
+        sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        try:
+            model.run(imu, gnss, frame_times, lambda k: images[k])
+        except ValueError as e:          # the JAX package's refusal, taken over unchanged
+            if "exceeds marg_cap" not in str(e):
+                raise
+            refused = e
+        sync()
+        wall = time.perf_counter() - t0
+    traj = np.asarray(model.trajectory) if model.trajectory else np.zeros((0, 8))
+    stop = frames.rows[-1][5] if refused is not None and frames.rows else None
+    return types.SimpleNamespace(model=model, log=log, frames=frames, trace=traced.rows if traced else None, traj=traj,
+                                 wall=wall, refused=refused, stop=stop)
+
+
+def world_inputs(world, length):
+    """The td world at turn ``length`` (``world`` "td") or the stability
+    world at ``length`` s ("stab") as a replay takes it: (imu, gnss, truth,
+    frame_times, images, the parsed configuration, the camera, the camera
+    module, seconds taken)."""
+    from ic_gvins_tpu_torch.core import rotation_np
+    from ic_gvins_tpu_torch.engine.config import parse_config
+    from ic_gvins_tpu_torch.vision import camera as cam
+
+    t0 = time.perf_counter()
+    make, raw, camera = (td_world, TD_RAW, SMALL_CAMERA) if world == "td" else (stability_world, STAB_RAW, STAB_CAMERA)
+    imu, gnss, truth, frame_times, frame = make(cam, rotation_np, length)
+    images = [frame(k) for k in range(len(frame_times))]
+    return (imu, gnss, truth, frame_times, images, gvins_config(parse_config, truth, raw, camera),
+            cam.PinholeCamera.from_config(*camera), cam, time.perf_counter() - t0)
+
+
+def td_replay(device, cores=None, turn_duration=TD_TURN):
+    """The port's GvinsModel on the td world on ``device``: (the state and
+    node count after every frame, the trajectory, the td after every update,
+    the final state and td, wall seconds). With ``cores``, it keeps to the
+    host's last ``cores`` cores with as many torch threads (the CPU twin of
+    phase 11, in a child process)."""
+    import torch
+
+    keep_to_cores(torch, cores)
+    imu, gnss, _, frame_times, images, cfg, *_ = world_inputs("td", turn_duration)
+    run = estimation_run(torch, device, cfg, imu, gnss, frame_times, images)
+    assert run.refused is None, run.refused
+    return run.log.states, run.traj, run.log.tds, run.model.state, run.model.td_b_c, run.wall
+
+
+def keep_to_cores(torch, cores):
+    """With ``cores``, keeps this process to the host's last ``cores``
+    cores (at most half of them) with as many torch threads."""
+    if cores:
+        allowed = sorted(os.sched_getaffinity(0))
+        cores = min(cores, max(len(allowed) // 2, 1))
+        os.sched_setaffinity(0, allowed[-cores:])
+        torch.set_num_threads(cores)
+
+
+def _kernel_modules():
+    from ic_gvins_tpu_torch.ops import clahe as kclahe
+    from ic_gvins_tpu_torch.ops import lk as klk
+    from ic_gvins_tpu_torch.ops import subpix as ksubpix
+    from ic_gvins_tpu_torch.vision import features as feat
+    from ic_gvins_tpu_torch.vision import map as vmap_mod
+    from ic_gvins_tpu_torch.vision import pyramid
+    from ic_gvins_tpu_torch.vision import tracking as trk
+
+    return kclahe, klk, ksubpix, pyramid, feat, trk, vmap_mod
+
+
+def counted_run(wrappers, run_fn):
+    """run_fn() with the kernels' launch counters set to 0 just before and
+    read just after: (its result, the launches)."""
+    for w in wrappers.values():
+        w.launches = 0
+    out = run_fn()
+    return out, {k: w.launches for k, w in wrappers.items()}
+
+
+def td_check(torch, card, wrappers):
+    """The td world on the card at TD_TURN: each kernel against its plain
+    version on frames 199-200, then the replay with the counters set to 0
+    just before and read just after and tests/test_td_estimation.py's gates.
+    Returns (launches, failed gates, gates not met, (state, td, trajectory,
+    states after every frame))."""
+    imu, gnss, _, frame_times, images, cfg, camera, _, secs = world_inputs("td", TD_TURN)
+    print(f"[td] world: {len(imu['time'])} IMU samples, {len(gnss['time'])} GNSS fixes, {len(frame_times)} frames "
+          f"320x240 exposed {TD_TRUE} s after their stamps, made in {secs:.2f} s on the CPU")
+    long_kernel_checks(torch, _kernel_modules(), lambda k: images[k], cfg, camera, checked={"normal": (199, 200)},
+                       min_joints={"normal": 15}, label="td world")
+    run, launches = counted_run(wrappers, lambda: estimation_run(torch, DEVICE, cfg, imu, gnss, frame_times, images))
+    m, log = run.model, run.log
+    sim_s = float((run.stop if run.stop is not None else imu["time"][-1]) - imu["time"][0])
+    print(f"[td] replay {sim_s:.2f} s simulated in {run.wall:.3f} s wall: {sim_s / run.wall:.3f} sim-s per wall-s; "
+          f"{log.counts} (frames, keyframe episodes, marginalizations); solver tiers {m.tier_counts}; launches "
+          f"{launches} ({card})")
+    print(f"[td] td after each update (s): {[round(t, 5) for t in log.tds]}")
+    print(f"[td] gate decisions (adopted, refused): {log.adoptions()}; final td {m.td_b_c:.6f} s (true {TD_TRUE}); "
+          f"check_time_consistency found violations after {len(log.failures)} episodes")
+    if run.refused is not None:
+        print(f"[td] the replay stopped after the frame at {run.stop:.2f} s: {run.refused}")
+    failed, not_met = judge("td", td_gates(m, run.traj, log.tds), run.stop)
+    return launches, failed, not_met, (m.state, m.td_b_c, run.traj, log.states)
+
+
+def stability_check(torch, card, wrappers, duration=STAB_DURATION):
+    """The stability world on the card at ``duration`` s: each kernel against
+    its plain version on frames 299-300, then the replay with the counters
+    set to 0 just before and read just after, STAB_PROFILED's episodes under
+    torch.profiler, and tests/test_gvins_stability_e2e.py's seven gates at
+    their thresholds for ``duration``. Returns (launches, failed gates, gates
+    not met or left standing, the replay's ``PartingTrace``)."""
+    from ic_gvins_tpu_torch.core import rotation_np
+
+    outage = stab_outage(duration)
+    imu, gnss, truth, frame_times, images, cfg, camera, _, secs = world_inputs("stab", duration)
+    print(f"[stab] world: {duration:g} s drive, {len(imu['time'])} IMU samples, {len(gnss['time'])} GNSS fixes "
+          f"(outage {outage}), {len(frame_times)} frames 160x120, made in {secs:.2f} s on the CPU")
+    long_kernel_checks(torch, _kernel_modules(), lambda k: images[k], cfg, camera, checked={"normal": (299, 300)},
+                       min_joints={"normal": 5}, label="stability world")
+    run, launches = counted_run(wrappers, lambda: estimation_run(torch, DEVICE, cfg, imu, gnss, frame_times, images,
+                                                                 profiled=STAB_PROFILED, trace=True))
+    m, log, c = run.model, run.log, run.log.counts
+    sim_s = float((run.stop if run.stop is not None else imu["time"][-1]) - imu["time"][0])
+    print(f"[stab] replay {sim_s:.2f} s simulated in {run.wall:.3f} s wall ({run.frames.prof_frames_s:.3f} s of it the "
+          f"frames under torch.profiler, episodes {STAB_PROFILED[0]}-{STAB_PROFILED[1] - 1}; in phase 11 its CPU "
+          f"twins run beside it with {GVINS_TWIN_CORES} threads): {sim_s / run.wall:.3f} sim-s per wall-s; "
+          f"{c['frames']} frames, {c['episodes']} keyframe episodes, {c['margs']} marginalizations, kf_ratio "
+          f"{c['episodes'] / max(c['frames'], 1):.4f}, marg_ratio {c['margs'] / max(c['frames'], 1):.4f}; solver "
+          f"tiers {m.tier_counts}, marginalization tiers {m.tier_counts_marg}; launches {launches} ({card})")
+    bridge = stab_errs(run.traj, truth, t_lo=outage[0], t_hi=outage[1] + 2.0)
+    gnss_free = [(round(t, 2), rows) for _, t, n_gnss, rows in log.episodes if n_gnss == 0]
+    print(f"[stab] episodes with no GNSS fix in the window (newest node s, reprojection rows): {len(gnss_free)}, "
+          f"from {gnss_free[:1]} to {gnss_free[-1:]}; rows in each: min "
+          f"{min((r for _, r in gnss_free), default=0)}")
+    print(f"[stab] gate decisions (adopted, refused): {log.adoptions()}; final td {m.td_b_c:.6f} s, t_b_c "
+          f"{m.pose_b_c_t} m, R_b_c {rotation_np.matrix_to_euler(m.pose_b_c_R) * 180 / np.pi} deg; bridge max error "
+          f"{float(bridge.max()) if len(bridge) else float('nan'):.4f} m over {len(bridge)} nodes")
+    frames = run.frames
+    if frames.prof_wall_ms is None:
+        print(f"[stab] profiler: the window {STAB_PROFILED} was not completed")
+    else:
+        kernels, busy = device_activity(torch, frames.prof, frames.prof_wall_ms)
+        if kernels is None:
+            print("[stab] profiler: no device events in the trace; busy share not measured")
+        else:
+            print(f"[stab] profiler, episodes {STAB_PROFILED[0]}-{STAB_PROFILED[1] - 1} and the frames between: "
+                  f"{kernels / (STAB_PROFILED[1] - STAB_PROFILED[0]):.0f} CUDA kernels per episode, device busy "
+                  f"{busy:.2f} of {frames.prof_wall_ms:.2f} ms = {100 * busy / frames.prof_wall_ms:.1f} % ({card})")
+    if run.refused is not None:
+        print(f"[stab] the replay stopped after the frame at {run.stop:.2f} s: {run.refused} (the JAX package "
+              f"refuses such a slide alike: ROADMAP R1)")
+    print(f"[stab] check_time_consistency found violations after {len(log.failures)} of {c['episodes']} episodes: "
+          f"{[(e, msgs) for e, msgs, _ in log.failures[:5]]}{' ...' if len(log.failures) > 5 else ''}")
+    scatter = float(np.median(log.ext_estimates)) if log.ext_estimates else float("nan")
+    print(f"[stab] the extrinsic translations the solve returned to the gate: {len(log.ext_estimates)}, median "
+          f"size {scatter:.3f} m, largest {max(log.ext_estimates, default=float('nan')):.3f} m")
+    standing = dict(STAB_JAX_F64_FAILS) if run.refused is None else {}
+    if log.failures and all(snapped for *_, snapped in log.failures):
+        standing["episodes with violations"] = (
+            "every one is an interval that ends on its node with a dt within 1e-4 s of its node gap, the IMU sample "
+            "ImuStream.series takes whole when a td-shifted node lies within 1e-4 s of it; the JAX package makes "
+            "the same violations on this world (ROADMAP R4)")
+    bridged = [(t, rows) for t, rows in gnss_free if outage[0] <= t < outage[1] and rows > 0]
+    evidence = [("outage_bridged", "GNSS-free episodes with reprojection rows in the outage", len(bridged), ">= 1",
+                 len(bridged) >= 1, outage[1] + 2.0)]
+    failed, not_met = judge("stab", stability_gates(m, run.traj, truth, c, log.failures, duration) + evidence,
+                            run.stop, standing)
+    return launches, failed, not_met, run.trace
+
+
+STAB_VARIANTS = ("kernels", "deterministic", "plain kernels")
+
+
+def stab_trace_run(torch, device, duration, variant="kernels", cores=None, until=None):
+    """The stability world at ``duration`` s through the port on ``device``
+    with a ``PartingTrace``. ``variant``: "kernels" as phase 11 runs it;
+    "deterministic" under ``torch.use_deterministic_algorithms`` (torch's
+    deterministic form of every op that has one); "plain
+    kernels" with the frontend's three kernel wrappers swapped for their
+    plain versions on the same device. With ``cores``, it keeps to the
+    host's last ``cores`` cores with as many torch threads. With ``until``,
+    the replay ends with the frames stamped before ``until`` s (the world
+    is the same). Returns (a summary dict, the trace)."""
+    from ic_gvins_tpu_torch.ops import clahe, lk, subpix
+    from ic_gvins_tpu_torch.vision import features, pyramid
+    from ic_gvins_tpu_torch.vision import lk as vlk
+
+    keep_to_cores(torch, cores)
+    imu, gnss, truth, frame_times, images, cfg, *_ = world_inputs("stab", duration)
+    if until is not None:
+        imu = {k: v[imu["time"] <= until + 1.0] for k, v in imu.items()}
+        gnss = {k: v[gnss["time"] < until] for k, v in gnss.items()}
+        frame_times = frame_times[frame_times < until]
+    swaps = []
+    if variant == "plain kernels":
+        swaps = [(vlk, "lk_pyr", lambda *a, iters=None, **kw: lk.lk_pyr_plain(*a, **kw)),
+                 (pyramid, "clahe_apply", clahe.clahe_apply_plain),
+                 (features, "subpix", lambda img, c, v, iters=None: subpix.subpix_plain(img, c, v, steps=iters))]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    torch.use_deterministic_algorithms(variant == "deterministic", warn_only=True)
+    try:
+        run = estimation_run(torch, device, cfg, imu, gnss, frame_times, images, trace=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    m, c = run.model, run.log.counts
+    gates = stability_gates(m, run.traj, truth, c, run.log.failures, duration)
+    outage = stab_outage(duration)
+    bridge = stab_errs(run.traj, truth, t_lo=outage[0], t_hi=outage[1] + 2.0)
+    summary = dict(device=device, variant=variant, threads=torch.get_num_threads(), stop=run.stop,
+                   wall_s=round(run.wall, 3), **c, capacity_sheds=sum(m.tier_counts_marg.values()) - c["margs"],
+                   td=m.td_b_c, t_b_c_m=float(np.linalg.norm(m.pose_b_c_t)),
+                   bridge_max_m=float(bridge.max()) if len(bridge) else None,
+                   not_met=[name for _, name, _, _, ok, _ in gates if not ok])
+    return summary, run.trace
+
+
+def stability_parting(out_dir, duration=STAB_DURATION, variants=STAB_VARIANTS, repeats=2):
+    """Where the stability world's replays part: on the card ``repeats``
+    times as phase 11 runs it ("kernels"), once in each other of
+    ``variants``, and on the CPU (this script run again as a child process
+    with GVINS_TWIN_CORES threads, from the start). Prints each run's
+    counts, slides and unmet gates, then the first frame at which two runs
+    of the kernels part, each other variant parts from them and each
+    card run parts from the CPU, and what differs there; writes the traces
+    to ``out_dir``/stability_traces.pkl. Run it on the card as ``python3
+    chip_smoke.py --stab-parting OUT_DIR [SECONDS [VARIANT,...]]``."""
+    import torch
+
+    card = the_card(torch)
+    os.makedirs(out_dir, exist_ok=True)
+    cpu_out = os.path.join(out_dir, "stability_cpu.pkl")
+    child = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--stab-trace", cpu_out, repr(duration)],
+                             stdout=sys.stderr)
+    traces = {}
+    try:
+        for variant in variants:
+            for i in range(repeats if variant == "kernels" else 1):
+                summary, traces[f"card {variant} {i + 1}"] = stab_trace_run(torch, DEVICE, duration, variant)
+                print(f"[parting] card {variant} {i + 1}: {summary} ({card})", flush=True)
+        rc = child.wait(timeout=1800)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    assert rc == 0, f"the CPU replay exited with {rc}"
+    with open(cpu_out, "rb") as fh:
+        summary, traces["cpu"] = pickle.load(fh)
+    print(f"[parting] cpu: {summary}")
+    firsts = [f"card {v} 1" for v in variants]
+    pairs = [(a, a[:-1] + "2") for a in firsts if a[:-1] + "2" in traces]
+    pairs += [(firsts[0], b) for b in firsts[1:]] + [(a, "cpu") for a in firsts]
+    for a, b in pairs:
+        print(f"[parting] {describe_parting(a, b, traces[a], traces[b], STAB_RAW['track_min_parallax'])}")
+    with open(os.path.join(out_dir, "stability_traces.pkl"), "wb") as fh:
+        pickle.dump(traces, fh)
+
+
+SCATTER_ROWS = 1 << 20           # rows of scatter_check's repeatability set (64 targets)
+
+
+def scatter_check(torch, card):
+    """The backend's assembly scatter, ``solver/problem.py:scatter_sum``, on
+    the card: SCATTER_ROWS float64 rows of 6 into 64 targets twice (equal
+    bit for bit: the replay is repeatable only so) and within 1e-9 of the
+    CPU's ``index_add``; ``index_add`` on the card (what the assembly used
+    before, by atomics) twice beside it. Then both timed with CUDA events
+    at the shapes the stability world's episode gives the assembly's two
+    largest scatters: 4*R + 4*(N - 1) + G + 2 blocks of 15x15 into N*N, and
+    2*R rows of 6 into N*L. Returns {shape: (scatter_sum ms, index_add ms)}."""
+    from ic_gvins_tpu_torch.solver.problem import scatter_sum
+
+    g = torch.Generator().manual_seed(SEED)
+    idx = torch.randint(0, 64, (SCATTER_ROWS,), generator=g)
+    vals = torch.randn(SCATTER_ROWS, 6, generator=g, dtype=torch.float64)
+    cpu = torch.zeros(64, 6, dtype=torch.float64).index_add(0, idx, vals)
+    i, v = idx.to(DEVICE), vals.to(DEVICE)
+    ours = [scatter_sum(v.new_zeros((64, 6)), i, v).cpu() for _ in range(2)]
+    atomics = [v.new_zeros((64, 6)).index_add(0, i, v).cpu() for _ in range(2)]
+    err = float((ours[0] - cpu).abs().max())
+    print(f"[scatter] {SCATTER_ROWS} rows into 64 targets on the card: scatter_sum twice equal bit for bit "
+          f"{torch.equal(ours[0], ours[1])}, against the CPU's index_add max abs error {err:.3g} (bit for bit "
+          f"{torch.equal(ours[0], cpu)}); index_add twice equal {torch.equal(atomics[0], atomics[1])} ({card})")
+    assert torch.equal(ours[0], ours[1]), "scatter_sum is not repeatable on the card"
+    assert err < 1e-9, err
+    N, L, R, G = STAB_RAW["node_slots"], STAB_RAW["landmark_slots"], STAB_RAW["reproj_slots"], STAB_RAW["gnss_slots"]
+    times = {}
+    for label, n, m, shape in ((f"blocks {4 * R + 4 * (N - 1) + G + 2}x15x15 into {N * N}", N * N,
+                                4 * R + 4 * (N - 1) + G + 2, (15, 15)),
+                               (f"rows {2 * R}x6 into {N * L}", N * L, 2 * R, (6,))):
+        i = torch.randint(0, n, (m,), generator=g).to(DEVICE)
+        v = torch.randn(m, *shape, generator=g, dtype=torch.float64).to(DEVICE)
+        fns = {"scatter_sum": lambda: scatter_sum(v.new_zeros((n, *shape)), i, v),
+               "index_add": lambda: v.new_zeros((n, *shape)).index_add(0, i, v)}
+        ms = {}
+        for name, fn in fns.items():
+            for _ in range(10):
+                fn()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(200):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            ms[name] = start.elapsed_time(end) / 200
+        times[label] = (ms["scatter_sum"], ms["index_add"])
+        print(f"[scatter] {label}: scatter_sum {ms['scatter_sum']:.4f} ms, index_add {ms['index_add']:.4f} ms a "
+              f"call, as issued (200 calls, CUDA events; {card})")
+    return times
+
+
+def scatter_ab():
+    """The end-to-end cost of the repeatable scatter: phase 7's small GVINS
+    replay (``gvins_small_run``: tests/test_gvins_e2e.py's 24 s world at
+    320x240) on the card once to warm up, then with the assembly's
+    ``scatter_sum`` and with ``index_add`` in its place (the atomics it
+    replaced) in turns: scatter_sum, index_add, index_add, scatter_sum.
+    Prints each run's wall. Run it on the card as ``python3 chip_smoke.py
+    --scatter-ab``."""
+    import torch
+
+    from ic_gvins_tpu_torch.solver import problem
+
+    card = the_card(torch)
+    ours = problem.scatter_sum
+    variants = {"scatter_sum": ours, "index_add": lambda out, idx, vals: out.index_add(0, idx, vals)}
+    walls = collections.defaultdict(list)
+    try:
+        for name in ("scatter_sum", "scatter_sum", "index_add", "index_add", "scatter_sum"):
+            problem.scatter_sum = variants[name]
+            *_, state, wall = gvins_small_run(DEVICE)
+            walls[name].append(wall)
+            print(f"[scatter-ab] {name}: {wall:.3f} s wall, state {state} ({card})", flush=True)
+    finally:
+        problem.scatter_sum = ours
+    print(f"[scatter-ab] in turns after a warm-up run: scatter_sum {[round(w, 3) for w in walls['scatter_sum'][1:]]} "
+          f"s, index_add {[round(w, 3) for w in walls['index_add']]} s ({card})")
+
+
+def estimation_phase(torch, card, wrappers):
+    """Phase 11: GvinsModel with extrinsic and td estimation on: the td world
+    at its full drive (``td_check``) and the stability world at
+    STAB_DURATION s (``stability_check``) on the card, then both against
+    the CPU (this script run again as a child process from the phase's
+    start, ``--estimation-cpu-twins``): the td world's final state, and the
+    stability world's frames before STAB_TWIN_UNTIL s up to the first frame
+    at which the two replays part (``first_parting``), which is printed
+    with what differs there. Every kernel must launch in both replays.
+    Returns the kernels' launches in each replay."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    launches = {}
+    scatter_check(torch, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        twin_out = os.path.join(tmp, "cpu_twins.pkl")
+        child = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--estimation-cpu-twins", twin_out,
+                                  repr(TD_TURN), repr(STAB_DURATION), repr(STAB_TWIN_UNTIL)], stdout=sys.stderr)
+        try:
+            launches["td_world"], failed, not_met, (state_g, td_g, tg, sg) = td_check(torch, card, wrappers)
+            launches["stability_world"], f, n, trace_g = stability_check(torch, card, wrappers, STAB_DURATION)
+            failed, not_met = failed + f, not_met + n
+            t_wait = time.perf_counter()
+            rc = child.wait(timeout=900)
+            t_wait = time.perf_counter() - t_wait
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        assert rc == 0, f"phase 11's CPU twins exited with {rc}"
+        with open(twin_out, "rb") as fh:
+            (sc, tc, _, state_c, td_c, secs_c), (stab_c, trace_c) = pickle.load(fh)
+    same = tg.shape == tc.shape
+    dt_nodes = float(np.abs(tg[:, 0] - tc[:, 0]).max()) if same else float("inf")
+    dp = float(np.abs(tg[:, 1:4] - tc[:, 1:4]).max()) if same else float("inf")
+    print(f"[td] CUDA against CPU: states after every frame equal {sg == sc}, final {state_g} / {state_c}, td "
+          f"{td_g:.9f} / {td_c:.9f} s (difference {abs(td_g - td_c):.3g}), {len(tg)} / {len(tc)} nodes, node times "
+          f"within {dt_nodes:.3g} s, positions within {dp:.3g} m ({secs_c:.1f} s wall on the CPU in the child process "
+          f"with {GVINS_TWIN_CORES} threads, {t_wait:.1f} s of it waited for)")
+    assert sg == sc and state_g == state_c, "the td world's states differ between CUDA and the CPU"
+    assert dp < GVINS_CUDA_CPU_TOL and abs(td_g - td_c) < TD_CUDA_CPU_TOL, (dp, td_g, td_c)
+    k, _, before, _ = first_parting(trace_g, trace_c)
+    print(f"[stab] CUDA against CPU over the frames before {STAB_TWIN_UNTIL:g} s ({len(trace_c)} frames; the CPU "
+          f"in the child process, {stab_c['wall_s']:.1f} s wall): "
+          f"{describe_parting('card', 'cpu', trace_g, trace_c, STAB_RAW['track_min_parallax'])}")
+    assert k is None or k > 0, "the stability world's replays part at its first frame"
+    assert before["pos_m"] < STAB_CUDA_CPU_TOL, f"episode positions {before['pos_m']} m apart before the parting"
+    for path, n_launch in launches.items():
+        print(f"[estimation] launches in the {path} replay {n_launch}")
+        assert all(v > 0 for v in n_launch.values()), f"a kernel was not launched in the {path} replay"
+    if not_met:
+        print(f"[estimation] NOT MET or left standing, as the JAX package fails them alike (ROADMAP R1, R4, R6): "
+              f"{not_met}")
+    print(f"[estimation] phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    assert not failed, f"phase 11 gates failed: {failed}"
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2497,12 +3374,18 @@ def main():
     t_mark = time.perf_counter()
     script_launches = script_phase(torch, card, wrappers)
     phase_s[10] = time.perf_counter() - t_mark
+
+    # ---- phase 11: extrinsic and td estimation on: two worlds --------------
+    t_mark = time.perf_counter()
+    estimation_launches = estimation_phase(torch, card, wrappers)
+    phase_s[11] = time.perf_counter() - t_mark
     for k in records:
         records[k]["launches_by_path"] = {"frontend_slice": records[k]["launches"],
                                           "gvins_replay": int(replay_launches[k]),
                                           "long_fault_replay": int(long_launches[k]),
                                           "fleet_frontend": int(fleet_launches[k]),
-                                          **{path: int(n[k]) for path, n in script_launches.items()}}
+                                          **{path: int(n[k]) for path, n in script_launches.items()},
+                                          **{f"{path}_replay": int(n[k]) for path, n in estimation_launches.items()}}
         records[k]["launches"] = int(long_launches[k])
     print(f"[phases] seconds by phase {json.dumps({str(k): round(v, 1) for k, v in sorted(phase_s.items())})}, "
           f"total {time.perf_counter() - t_start:.1f} s")
@@ -2518,5 +3401,23 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--gvins-cpu-twin"]:    # phase 7's child process
         with open(sys.argv[2], "wb") as f:
             pickle.dump(gvins_small_run("cpu", GVINS_TWIN_CORES), f)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--estimation-cpu-twins"]:   # phase 11's child process
+        with open(sys.argv[2], "wb") as f:
+            pickle.dump((td_replay("cpu", GVINS_TWIN_CORES, float(sys.argv[3])),
+                         stab_trace_run(__import__("torch"), "cpu", float(sys.argv[4]), cores=GVINS_TWIN_CORES,
+                                        until=float(sys.argv[5]))), f)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--stab-trace"]:        # stability_parting's child process
+        with open(sys.argv[2], "wb") as f:
+            pickle.dump(stab_trace_run(__import__("torch"), "cpu", float(sys.argv[3]),
+                                       cores=int(sys.argv[4]) if len(sys.argv) > 4 else GVINS_TWIN_CORES), f)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--scatter-ab"]:
+        scatter_ab()
+        sys.exit(0)
+    if sys.argv[1:2] == ["--stab-parting"]:
+        stability_parting(sys.argv[2], *(float(a) for a in sys.argv[3:4]),
+                          *(tuple(a.split(",")) for a in sys.argv[4:5]))
         sys.exit(0)
     sys.exit(main())

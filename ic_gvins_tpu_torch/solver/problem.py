@@ -9,11 +9,13 @@ table in batched tensor ops, in float64 throughout (the JAX package's f32
 reprojection path is a TPU choice; its ``precise=True`` mode is the f64 one
 this port follows).
 
-The normal equations are assembled with ``index_add``: each factor's
-(node, node) blocks land in an (N*N, ND, ND) block tensor by the flat index
-i*N + j of its node pair, its gradient in an (N, ND) tensor by node. The
-JAX package's one-hot contractions and mask band embeds are TPU lowering
-choices; padded rows carry index 0 and weight 0 and add exact zeros.
+The normal equations are assembled by scatter-adds (``scatter_sum``): each
+factor's (node, node) blocks land in an (N*N, ND, ND) block tensor by the
+flat index i*N + j of its node pair, its gradient in an (N, ND) tensor by
+node. The JAX package's one-hot contractions and mask band embeds are TPU
+lowering choices; padded rows carry index 0 and weight 0 and add exact
+zeros. Each target adds its rows in an order fixed by the rows alone, on
+the card as on the CPU, so a replay is repeatable as the JAX package's is.
 
 Local parameter layout (D = N*ND + 7 + L columns; ND = 15, or 16 with the
 wheel odometer):
@@ -27,8 +29,8 @@ Every function of one problem here has a batched form over a leading axis
 of B independent problems, ``over_problems(fn, cfg)`` (``torch.func.vmap``
 with the static config held fixed): the counterpart of the JAX package's
 ``jax.vmap`` in ``parallel/mesh.py``. B problems then share one stream of
-ops. The assembly scatters out of place (``index_add``, never
-``index_add_`` into a fresh tensor) and the jacobians' buffers come from
+ops. The assembly scatters out of place (never in place into a fresh
+tensor) and the jacobians' buffers come from
 ``new_zeros`` of an input, which is what vmap needs to batch them.
 """
 
@@ -443,6 +445,18 @@ def _jtr(J, r, w):
     return (J.transpose(-1, -2) @ r[..., None])[..., 0] * w[:, None]
 
 
+def scatter_sum(out, idx, vals):
+    """``out`` with row i of vals added into row idx[i], each target's rows
+    in an order fixed by idx alone. ``index_add`` on the CPU (in row
+    order); on the card ``index_put`` with ``accumulate``, which sorts the
+    rows by target and adds each target's without atomics, where
+    ``index_add`` adds them by atomics in an order that changes from run
+    to run. Out of place, so ``over_problems`` batches it."""
+    if out.device.type == "cpu":
+        return out.index_add(0, idx, vals)
+    return out.index_put((idx,), vals, accumulate=True)
+
+
 def _pad_block(M, ND, lead=0):
     """Embed (..., a, b) blocks at offset ``lead`` of (..., ND, ND)."""
     a, b = M.shape[-2:]
@@ -453,7 +467,7 @@ def build_normal_equations(params, tables: FactorTables, cfg: WindowConfig):
     """Assemble the dense normal equations: (H (D,D), b (D,) = -Jᵀr, act
     (D,)), with the robust correction and masks. Each factor's whitened
     jacobian block, over the columns it touches, is scattered into H and b
-    with ``index_add_``: the blocks ``build_normal_blocks`` places by node
+    with ``scatter_sum``: the blocks ``build_normal_blocks`` places by node
     pair, assembled here a second, independent way (the JAX package's
     dense form, for tests, the marginalization checks and small
     problems)."""
@@ -465,8 +479,9 @@ def build_normal_equations(params, tables: FactorTables, cfg: WindowConfig):
 
     def add(cols, J, r, w):
         """Blocks J (B, res, C) and r (B, res) on columns cols (B, C), weighted w (B,)."""
-        H.index_add_(0, (cols[:, :, None] * D + cols[:, None, :]).reshape(-1), _jtj(J, w).reshape(-1))
-        b.index_add_(0, cols.reshape(-1), -_jtr(J, r, w).reshape(-1))
+        nonlocal H, b
+        H = scatter_sum(H, (cols[:, :, None] * D + cols[:, None, :]).reshape(-1), _jtj(J, w).reshape(-1))
+        b = scatter_sum(b, cols.reshape(-1), -_jtr(J, r, w).reshape(-1))
 
     # ---- GNSS (3 res, 6 pose cols) ----
     t = tables.gnss
@@ -569,15 +584,14 @@ def build_normal_blocks(params, tables: FactorTables, cfg: WindowConfig):
              _pad_block(AB.transpose(-1, -2), ND)]
     gidx += [ref, obs]
     gvec += [F.pad(gr[:, A], (0, ND - 6)), F.pad(gr[:, B], (0, ND - 6))]
-    Hcross = torch.zeros((N, 6, 7), dtype=F64, device=dev).index_add(
-        0, torch.cat([ref, obs]), torch.cat([Pr[:, A, C], Pr[:, B, C]]))
+    Hcross = scatter_sum(Pr.new_zeros((N, 6, 7)), torch.cat([ref, obs]), torch.cat([Pr[:, A, C], Pr[:, B, C]]))
     Htail = torch.sum(Pr[:, C, C], dim=0)
-    Hsl_nodes = torch.zeros((N * L, 6), dtype=F64, device=dev).index_add(
-        0, torch.cat([ref * L + lm, obs * L + lm]), torch.cat([Pr[:, A, LM], Pr[:, B, LM]]))
-    Hsl_tail = torch.zeros((L, 7), dtype=F64, device=dev).index_add(0, lm, Pr[:, C, LM])
-    hll = torch.zeros(L, dtype=F64, device=dev).index_add(0, lm, Pr[:, LM, LM])
+    Hsl_nodes = scatter_sum(Pr.new_zeros((N * L, 6)), torch.cat([ref * L + lm, obs * L + lm]),
+                            torch.cat([Pr[:, A, LM], Pr[:, B, LM]]))
+    Hsl_tail = scatter_sum(Pr.new_zeros((L, 7)), lm, Pr[:, C, LM])
+    hll = scatter_sum(Pr.new_zeros(L), lm, Pr[:, LM, LM])
     b_tail = -torch.sum(gr[:, C], dim=0)
-    b_lm = -torch.zeros(L, dtype=F64, device=dev).index_add(0, lm, gr[:, LM])
+    b_lm = -scatter_sum(gr.new_zeros(L), lm, gr[:, LM])
 
     # ---- imu error factor on the newest mix ----
     pr = tables.prior
@@ -602,13 +616,13 @@ def build_normal_blocks(params, tables: FactorTables, cfg: WindowConfig):
     gvec.append(torch.cat([Jpp.T @ rpp, Jmp.T @ rmp])[None] * pr.valid)
 
     # ---- scatter, then the block form by concatenation ----
-    Hb = torch.zeros((N * N, ND, ND), dtype=F64, device=dev).index_add(0, torch.cat(hidx), torch.cat(hblk))
+    Hb = scatter_sum(Pr.new_zeros((N * N, ND, ND)), torch.cat(hidx), torch.cat(hblk))
     Hn = Hb.reshape(N, N, ND, ND).permute(0, 2, 1, 3).reshape(N * ND, N * ND)
     Hc = F.pad(Hcross, (0, 0, 0, ND - 6)).reshape(N * ND, 7)
     Hss = torch.cat([torch.cat([Hn, Hc], dim=1), torch.cat([Hc.T, Htail], dim=1)], dim=0)
     Hsl = torch.cat([F.pad(Hsl_nodes.reshape(N, L, 6).permute(0, 2, 1), (0, 0, 0, ND - 6)).reshape(N * ND, L),
                      Hsl_tail.T], dim=0)
-    gn = torch.zeros((N, ND), dtype=F64, device=dev).index_add(0, torch.cat(gidx), torch.cat(gvec))
+    gn = scatter_sum(Pr.new_zeros((N, ND)), torch.cat(gidx), torch.cat(gvec))
     b = torch.cat([-gn.reshape(-1), b_tail, b_lm])
 
     # ---- marginalization prior (exact tangent chaining; landmark-free,
