@@ -3,7 +3,8 @@
 GNSS/INS replay (with and without the wheel odometer), its
 GNSS-visual-inertial replay, from memory and from files, its batched
 forms over a device mesh and its checkpoint, its user functions, its
-measurement scripts, and the replay with extrinsic and td estimation on.
+measurement scripts, the replay with extrinsic and td estimation on, and
+the replay's fault paths to their end.
 
 Run from the repository root, with no arguments:
 
@@ -76,7 +77,8 @@ of JAX. Phases, in order; any failure raises and the script exits nonzero:
    a window slide of more than marg_cap nodes, and the port refuses it
    alike: on these files it stops after the frame at 40.25 s (on the CPU),
    every gate whose window lies after the stop is printed NOT MET (ROADMAP
-   R1) and the phase holds the gates of the span that ran.
+   R1) and the phase holds the gates of the span that ran. The fault paths
+   past that stop run to their end in phase 12.
 9. the batched forms of ``parallel/mesh.py`` on ``make_mesh()`` (the card)
    and the checkpoint (``fleet_phase``): B = 1, 8 and 32 distinct windows
    of ``np_problem`` (this script's copy of ``__graft_entry__._np_problem``)
@@ -140,10 +142,29 @@ of JAX. Phases, in order; any failure raises and the script exits nonzero:
    as phase 11 does, once in each other variant (under torch's
    deterministic algorithms, with the plain kernels), and on the CPU, and
    prints where each pair parts (``stability_parting``).
+12. the GVINS fault paths to their end (``fault_phase``): ``fault_world``,
+   the long world's recipe over a 40 s drive with the faults inside it
+   (frames brightened x1.35 in [14, 15) s, GNSS fixes removed over [18, 26)
+   s, featureless frames in [30, 31.5) s, fixes with std 15 m on each axis
+   in [10, 12) s and one with std 0 at 28 s). (a) At 160x120 with
+   LONG_RAW (extrinsic and td estimation and the histogram gate on) on the
+   card: each kernel against its plain version on a normal, a glitch and a
+   featureless frame, then the replay with its counters set to 0 just
+   before and read just after and ``fault_gates`` (tests/test_gvins_long_
+   e2e.py's gates moved with the windows, TRACK_PASSED in the glitch,
+   TRACK_LOST in the blackout, the degraded and zero-std fixes dropped,
+   every other fix taken, TRACKING_NORMAL at the end); then against the CPU
+   (this script as a child process, ``--fault-cpu-twin``) up to the first
+   frame at which the two part. (b) The same faults at 1278x1022 over the
+   production envelope's corridor with its configuration, the histogram
+   gate on and ``isusegnssoutage`` from 36 s: the same gates, its kernel
+   checks, sim-s per wall-s, frames per second, the device busy share over
+   three profiled episodes and the launches.
 
 Each phase prints its seconds. The kernels' ``launches`` are phase 8's
 replay's (``launches_by_path`` keeps phase 4's, phase 7's, phase 9's
-batched frame's, phase 10's scripts' and phase 11's two replays' too).
+batched frame's, phase 10's scripts' and phase 11's and phase 12's two
+replays' too).
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. The helpers take the port's modules as
@@ -1492,7 +1513,8 @@ def long_phase(torch, card, wrappers):
     LONG_REFUSED_AFTER s of these files): where the replay stops so, each
     gate whose window lies after the stop is printed NOT MET, and the phase
     holds only the gates of the span that ran. Returns the kernels' launches
-    in the replay."""
+    in the replay. The fault paths past the stop run to their end in phase 12
+    (``fault_phase``)."""
     import importlib.util
     import tempfile
 
@@ -1691,7 +1713,8 @@ def long_phase(torch, card, wrappers):
         print(f"[long] gate {name}: {value} (limit {limit}) {verdict}")
     if not_reached:
         print(f"[long] NOT MET, the failure left standing (the port refuses a slide of more than marg_cap nodes "
-              f"as the JAX package does; ROADMAP R1): {not_reached}")
+              f"as the JAX package does; ROADMAP R1): {not_reached}; the fault paths past the stop run to their "
+              f"end in phase 12")
     print(f"[long] phase 8 took {time.perf_counter() - t_phase:.1f} s")
     assert not failed, f"phase 8 gates failed: {failed}"
     return launches
@@ -2506,11 +2529,12 @@ class PartingTrace:
     reprojection errors (px) over its keyframe observations as the outlier
     culling judges them and the landmarks it culled. Landmark ids count
     from the model's first, so that replays in one process compare. Install
-    after the ``EstimationLog``."""
+    after the ``EstimationLog``. Works on the port's ``GvinsModel`` and the
+    JAX package's alike (each with its own camera and map modules)."""
 
     def __init__(self, model):
-        from ic_gvins_tpu_torch.vision import camera as cam
-        from ic_gvins_tpu_torch.vision.map import Landmark
+        cam = sys.modules[type(model.camera).__module__]
+        Landmark = sys.modules[type(model.vmap).__module__].Landmark
 
         self.rows, base = [], Landmark._next_id
         process, cull = model._process_frame, model._visual_outlier_culling
@@ -2713,14 +2737,14 @@ def td_gates(model, traj, tds):
              bool(np.isfinite(traj).all()), 0.0)]
 
 
-def estimation_run(torch, device, cfg, imu, gnss, frame_times, images, profiled=None, trace=False):
+def estimation_run(torch, device, cfg, imu, gnss, frame_times, images, profiled=None, trace=False, faults=False):
     """The port's GvinsModel on ``device`` over a world with an
     ``EstimationLog`` and a ``FrameLog`` (a torch.profiler window over the
-    keyframe episodes ``profiled``), and with ``trace`` a ``PartingTrace``;
-    a refusal of a slide of more than
+    keyframe episodes ``profiled``), with ``trace`` a ``PartingTrace`` and
+    with ``faults`` a ``FaultLog``; a refusal of a slide of more than
     marg_cap nodes (the JAX package's, taken over unchanged) stops the run
     and is returned. Returns a namespace: model, log, frames (the FrameLog),
-    trace (the PartingTrace's rows or None),
+    trace (the PartingTrace's rows or None), faults (the FaultLog or None),
     traj (the model's trajectory rows), wall seconds, refused (None or the
     error), stop (the stamp of the last frame finished where refused)."""
     import types
@@ -2733,6 +2757,7 @@ def estimation_run(torch, device, cfg, imu, gnss, frame_times, images, profiled=
         model = gvins_mod.GvinsModel(cfg, device=device)
         log = EstimationLog(model)
         traced = PartingTrace(model) if trace else None
+        fault_log = FaultLog(model) if faults else None
         sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
         sync()
         t0 = time.perf_counter()
@@ -2746,8 +2771,8 @@ def estimation_run(torch, device, cfg, imu, gnss, frame_times, images, profiled=
         wall = time.perf_counter() - t0
     traj = np.asarray(model.trajectory) if model.trajectory else np.zeros((0, 8))
     stop = frames.rows[-1][5] if refused is not None and frames.rows else None
-    return types.SimpleNamespace(model=model, log=log, frames=frames, trace=traced.rows if traced else None, traj=traj,
-                                 wall=wall, refused=refused, stop=stop)
+    return types.SimpleNamespace(model=model, log=log, frames=frames, trace=traced.rows if traced else None,
+                                 faults=fault_log, traj=traj, wall=wall, refused=refused, stop=stop)
 
 
 def world_inputs(world, length):
@@ -3137,6 +3162,425 @@ def estimation_phase(torch, card, wrappers):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 12: the GVINS fault paths run to their end: an illumination step, a
+# camera blackout, a GNSS outage and the GNSS ingest gates in one 40 s drive,
+# at the long world's 160x120 and at the production envelope's 1278x1022
+# --------------------------------------------------------------------------
+
+FAULT_DURATION = 40.0            # s: the fault world's drive (a 34 s turn)
+FAULT_GLITCH = (14.0, 15.0)      # frames brightened x1.35 (the histogram gate)
+FAULT_OUTAGE = (18.0, 26.0)      # GNSS fixes removed
+FAULT_BLACKOUT = (30.0, 31.5)    # flat, featureless frames (TRACK_LOST and re-initialization)
+FAULT_DEGRADED = (10.0, 12.0)    # fixes given std (15, 15, 15) m: a norm of 26 m, above gnssthreshold 20
+FAULT_DEGRADED_STD = 15.0
+FAULT_ZERO_STD = 28.0            # the fix nearest this stamp gets std 0
+# LONG_RAW with extrinsic and td estimation off, the tier-1 twin's
+# configuration (tests/test_torch_faults.py): with estimation on, whether
+# the two packages' replays agree moves with the world and the thread count
+# (ROADMAP R5, R6)
+FAULT_RAW = dict(LONG_RAW, optimize_estimate_extrinsic=False, optimize_estimate_td=False)
+FAULT_OUTAGE_AFTER = 36.0        # s: gnssoutagetime of the full-width run (isusegnssoutage on)
+# frames (previous, checked) whose kernels are held against the plain
+# versions before each replay: a normal pair, a glitch frame, a blackout frame
+FAULT_CHECKED = {"normal": (99, 100), "glitch": (139, 140), "featureless": (299, 301)}
+FAULT_WIDE_MIN_JOINTS = {"normal": 50, "glitch": 0, "featureless": 0}
+FAULT_TWIN_UNTIL = 40.0          # s: the 160x120 world's CPU twin replays the frames before this stamp
+FAULT_PROFILED = (40, 43)        # keyframe episodes of the full-width run under torch.profiler
+
+
+def fault_world(cam_mod, rot_np, duration=FAULT_DURATION, camera=LONG_CAMERA, blob=LONG_BLOB, scene=None,
+                with_earth=False):
+    """The long world's recipe (``long_world``) with the faults of FAULT_*
+    over a ``duration`` s drive: ``gins_world(turn_duration=duration - 6)``
+    (200 Hz; the earth rate with ``with_earth``), its GNSS fixes in
+    FAULT_OUTAGE removed, those in FAULT_DEGRADED given std
+    FAULT_DEGRADED_STD m on each axis and the one nearest FAULT_ZERO_STD
+    std 0; frames at 10 Hz of ``camera`` (intrinsic, distortion,
+    resolution) at the true body pose, rendered by ``ground_frame`` with
+    ``blob`` (sigma, half-width) over ``scene`` (None: the long world's 6000
+    points 9-13 m below from default_rng(7); else a function of the truth
+    that gives the points), flat 90 gray in FAULT_BLACKOUT and brightened
+    x1.35 in FAULT_GLITCH. Returns (imu, gnss, truth, frame_times, frame)
+    with frame(k) the (H, W) f64 image of frame k."""
+    imu, gnss, truth = gins_world(turn_duration=duration - 6.0, seed=SEED, with_earth=with_earth)
+    keep = ~((gnss["time"] >= FAULT_OUTAGE[0]) & (gnss["time"] < FAULT_OUTAGE[1]))
+    gnss = {k: v[keep].copy() for k, v in gnss.items()}
+    gnss["std"][(gnss["time"] >= FAULT_DEGRADED[0]) & (gnss["time"] < FAULT_DEGRADED[1])] = FAULT_DEGRADED_STD
+    gnss["std"][np.argmin(np.abs(gnss["time"] - FAULT_ZERO_STD))] = 0.0
+    if scene is None:
+        rng = np.random.default_rng(7)
+        pts_w = np.stack([rng.uniform(-80, 140, 6000), rng.uniform(-80, 140, 6000), rng.uniform(9, 13, 6000)], axis=1)
+    else:
+        pts_w = scene(truth)
+    cam = cam_mod.PinholeCamera.from_config(*camera)
+    frame_times = np.arange(0.05, imu["time"][-1] - 0.2, 0.1)
+
+    def frame(k):
+        t = frame_times[k]
+        if FAULT_BLACKOUT[0] <= t < FAULT_BLACKOUT[1]:
+            return np.full((cam.height, cam.width), 90.0)
+        i = min(int(round(t * 200.0)) - 1, len(truth["p"]) - 1)
+        img = ground_frame(cam_mod, cam, pts_w, rot_np.to_matrix(truth["q"][i]), truth["p"][i], *blob)
+        if FAULT_GLITCH[0] <= t < FAULT_GLITCH[1]:
+            img = np.clip(img * 1.35, 0, 255)
+        return img
+    return imu, gnss, truth, frame_times, frame
+
+
+def fault_config(raw, truth, camera, outage_after=None):
+    """The configuration dict ``raw`` with the drive's lever arm and
+    ``camera`` (``gvins_raw``); with ``outage_after``, the reference's
+    gvins.yaml keys ``isusegnssoutage: true`` and ``gnssoutagetime:
+    outage_after`` (every fix from that stamp on is dropped at ingest)."""
+    out = gvins_raw(truth, raw, camera)
+    if outage_after is not None:
+        out.update(isusegnssoutage=True, gnssoutagetime=float(outage_after))
+    return out
+
+
+def ingest_dropped(gnss, threshold):
+    """The stamps of the fixes that the reference's std gates drop at
+    ingest (fusion_ros.cc:178-198): std zero on every axis, or a std norm
+    above ``threshold``."""
+    std = np.asarray(gnss["std"], np.float64)
+    drop = (std == 0).all(axis=1) | (np.linalg.norm(std, axis=1) > threshold)
+    return {round(float(t), 3) for t in gnss["time"][drop]}
+
+
+class FaultLog:
+    """Hooks on one model's own methods for the fault paths, wrapped on the
+    instance so that the class runs unmodified; they work on the GinsModel
+    and GvinsModel of the port and of the JAX package alike. ``tracked``:
+    the tracker's state on every tracked frame, by the frame's stamp
+    (rounded to 0.01 s); ``kept``: the stamps of the GNSS fixes the model
+    took, that is the fixes that passed its ingest gates (the
+    initialization's pairs, the GNSS/INS stage's fixes and the fixes offered
+    for node insertion); ``sheds``: the nodes that ``_ensure_node_capacity``
+    marginalized for capacity; ``chained``: the stamps of the time nodes
+    that ``_chain_time_nodes`` inserted."""
+
+    def __init__(self, model):
+        self.tracked, self.kept, self.sheds, self.chained = [], set(), 0, []
+        take = lambda g: self.kept.add(round(float(g["time"]), 3))  # noqa: E731
+
+        def wrap(name, hook):
+            if hasattr(model, name):
+                setattr(model, name, hook(getattr(model, name)))
+
+        def initializing(fn):
+            def hooked(stream, *args, **kw):
+                for g in (*args, *kw.values()):
+                    take(g)
+                return fn(stream, *args, **kw)
+            return hooked
+
+        def taking(fn):
+            def hooked(stream, gnss):
+                take(gnss)
+                return fn(stream, gnss)
+            return hooked
+
+        def shedding(fn):
+            def hooked():
+                n = model.est.n_nodes
+                out = fn()
+                self.sheds += n - model.est.n_nodes
+                return out
+            return hooked
+
+        def chaining(fn):
+            def hooked(stream, t_target, shed_capacity=None):
+                est = model.est
+                add = est.add_time_node
+
+                def added(t, series):
+                    self.chained.append(round(float(t), 4))
+                    return add(t, series)
+                est.add_time_node = added
+                try:
+                    return fn(stream, t_target, shed_capacity=shed_capacity)
+                finally:
+                    del est.add_time_node
+            return hooked
+
+        wrap("_try_initialize", initializing)
+        for name in ("_process_gnss", "_process_gnss_ins", "_insert_gnss_node"):
+            wrap(name, taking)
+        wrap("_ensure_node_capacity", shedding)
+        wrap("_chain_time_nodes", chaining)
+        tracker = getattr(model, "tracker", None)
+        if tracker is not None:
+            track = tracker.track
+
+            def tracking(frame, image):
+                st = track(frame, image)
+                self.tracked.append((round(float(frame.stamp - frame.td), 2), int(st)))
+                return st
+            tracker.track = tracking
+
+    def record(self):
+        """What it saw, as a plain dict (picklable)."""
+        return dict(tracked=list(self.tracked), kept=sorted(self.kept), sheds=self.sheds, chained=list(self.chained))
+
+
+def fault_states(tracked, state, window=None, outside=()):
+    """The stamps of the frames ``tracked`` = [(stamp, state)] left in
+    ``state``: inside ``window`` if given, and outside every window of
+    ``outside``."""
+    def inside(t, w):
+        return w[0] <= t < w[1]
+    return [t for t, st in tracked if st == state and (window is None or inside(t, window))
+            and not any(inside(t, w) for w in outside)]
+
+
+def fault_gates(model, traj, truth, faults, gnss, end, outage_after=None):
+    """tests/test_gvins_long_e2e.py's gates with its windows moved to the
+    fault world's, and the evidence that each fault path ran: [(test, name,
+    value, limit, met, needs)] as ``stability_gates``. ``faults`` is a
+    ``FaultLog.record()``, ``gnss`` the world's fixes, ``end`` the stamp of
+    the world's last frame."""
+    from ic_gvins_tpu_torch.vision.tracking import TRACK_LOST, TRACK_PASSED
+
+    outside = stab_errs(traj, truth, t_lo=8.0, exclude=(FAULT_OUTAGE, FAULT_BLACKOUT))
+    bridge = stab_errs(traj, truth, t_lo=FAULT_OUTAGE[0], t_hi=FAULT_OUTAGE[1] + 2.0)
+    post = stab_errs(traj, truth, t_lo=FAULT_BLACKOUT[1] + 3.0)
+    top = lambda e, f: float(f(e)) if len(e) else float("nan")  # noqa: E731
+    passed = fault_states(faults["tracked"], TRACK_PASSED, FAULT_GLITCH)
+    lost = fault_states(faults["tracked"], TRACK_LOST, FAULT_BLACKOUT)
+    kept, stamps = set(faults["kept"]), {round(float(t), 3) for t in gnss["time"]}
+    degraded = ingest_dropped(gnss, model.cfg.gnssthreshold)
+    late = {t for t in stamps if outage_after is not None and t >= outage_after}
+    expected = stamps - degraded - late
+    return [
+        ("survives", "state at the end", model.state, "TRACKING_NORMAL", model.state == "TRACKING_NORMAL", end),
+        # > 40 over the JAX test's 120 s; this world has ~13 s outside the faults
+        ("accuracy_outside_faults", "nodes outside the faults", len(outside), "> 5", len(outside) > 5, end),
+        ("accuracy_outside_faults", "mean error outside the faults m", top(outside, np.mean), "< 0.3",
+         top(outside, np.mean) < 0.3, 0.0),
+        ("outage_bridged", "bridge nodes", len(bridge), "> 3", len(bridge) > 3, FAULT_OUTAGE[1] + 2.0),
+        ("outage_bridged", "bridge max error m", top(bridge, np.max), "< 3.0", top(bridge, np.max) < 3.0,
+         FAULT_OUTAGE[1] + 2.0),
+        ("blackout_recovery", "post-blackout nodes", len(post), "> 3", len(post) > 3, end),
+        ("blackout_recovery", "post-blackout mean error m", top(post, np.mean), "< 0.3", top(post, np.mean) < 0.3,
+         end),
+        ("histogram_gate", f"TRACK_PASSED frames in {FAULT_GLITCH}", passed, ">= 1", len(passed) >= 1,
+         FAULT_GLITCH[1]),
+        ("blackout", f"TRACK_LOST frames in {FAULT_BLACKOUT}", lost, ">= 1", len(lost) >= 1, FAULT_BLACKOUT[1]),
+        ("ingest_gates", "degraded and zero-std fixes taken", sorted(kept & degraded), f"none of {sorted(degraded)}",
+         len(degraded) == 3 and not kept & degraded, 0.0),
+        ("ingest_gates", f"fixes from gnssoutagetime {outage_after} s taken", sorted(kept & late), "none",
+         not kept & late, 0.0),
+        ("ingest_gates", "fixes that pass the gates never taken", sorted(expected - kept), "none",
+         not expected - kept, end),
+    ]
+
+
+def fault_inputs(raw=LONG_RAW, outage_after=None, until=None, parse_config=None):
+    """The 160x120 fault world as a replay takes it, with the frames stamped
+    before ``until`` s (the IMU to 1 s past it, the fixes before it):
+    (imu, gnss, truth, frame_times, images, the configuration of
+    ``fault_config(raw, ...)`` as ``parse_config`` reads it (by default the
+    port's), the camera, seconds taken)."""
+    from ic_gvins_tpu_torch.core import rotation_np
+    from ic_gvins_tpu_torch.vision import camera as cam
+
+    if parse_config is None:
+        from ic_gvins_tpu_torch.engine.config import parse_config
+
+    t0 = time.perf_counter()
+    imu, gnss, truth, frame_times, frame = fault_world(cam, rotation_np)
+    if until is not None:
+        imu = {k: v[imu["time"] <= until + 1.0] for k, v in imu.items()}
+        gnss = {k: v[gnss["time"] < until] for k, v in gnss.items()}
+        frame_times = frame_times[frame_times < until]
+    images = [frame(k) for k in range(len(frame_times))]
+    cfg = parse_config(fault_config(raw, truth, LONG_CAMERA, outage_after))
+    return (imu, gnss, truth, frame_times, images, cfg, cam.PinholeCamera.from_config(*LONG_CAMERA),
+            time.perf_counter() - t0)
+
+
+def fault_trace_run(torch, device, until=None, cores=None):
+    """The 160x120 fault world with LONG_RAW through the port on ``device``
+    with a ``PartingTrace`` and a ``FaultLog`` (the CPU twin of phase 12, in
+    a child process). With ``cores``, it keeps to the host's last ``cores``
+    cores with as many torch threads. Returns (a summary dict, the trace,
+    the ``FaultLog`` record)."""
+    keep_to_cores(torch, cores)
+    imu, gnss, truth, frame_times, images, cfg, *_ = fault_inputs(until=until)
+    run = estimation_run(torch, device, cfg, imu, gnss, frame_times, images, trace=True, faults=True)
+    summary = dict(device=device, threads=torch.get_num_threads(), stop=run.stop, wall_s=round(run.wall, 3),
+                   **run.log.counts, state=run.model.state)
+    return summary, run.trace, run.faults.record()
+
+
+def print_faults(tag, rec, gnss, outage_after=None):
+    """One run's fault paths as lines: the tracker's states, TRACK_LOST
+    outside the faults, the fixes dropped at ingest, sheds and chained
+    nodes."""
+    from ic_gvins_tpu_torch.vision.tracking import TRACK_LOST, TRACK_PASSED
+
+    counts = dict(sorted(collections.Counter(st for _, st in rec["tracked"]).items()))
+    stray = fault_states(rec["tracked"], TRACK_LOST, outside=(FAULT_GLITCH, FAULT_BLACKOUT))
+    dropped = sorted({round(float(t), 3) for t in gnss["time"]} - set(rec["kept"]))
+    print(f"[{tag}] tracker states by frame (TRACK_*: count) {counts}; TRACK_PASSED at "
+          f"{fault_states(rec['tracked'], TRACK_PASSED)}; TRACK_LOST at {fault_states(rec['tracked'], TRACK_LOST)} "
+          f"({len(stray)} outside the glitch and the blackout)")
+    print(f"[{tag}] GNSS: {len(gnss['time'])} fixes in the world, {len(rec['kept'])} taken; not taken {dropped} "
+          f"(gnssoutagetime {outage_after}); node sheds for capacity {rec['sheds']}, chained time nodes "
+          f"{rec['chained']}")
+
+
+def fault_check(torch, card, wrappers):
+    """Phase 12 (a): the 160x120 fault world with LONG_RAW (extrinsic, td
+    estimation and the histogram gate on) on the card: each kernel against
+    its plain version on FAULT_CHECKED's frames, then the replay with the
+    counters set to 0 just before and read just after, and
+    ``fault_gates``. Returns (launches, failed gates, gates not met, the
+    replay's ``PartingTrace``, its ``FaultLog`` record, the world's GNSS
+    fixes)."""
+    imu, gnss, truth, frame_times, images, cfg, camera, secs = fault_inputs()
+    print(f"[fault] world: {FAULT_DURATION:g} s drive, {len(imu['time'])} IMU samples, {len(gnss['time'])} GNSS "
+          f"fixes (outage {FAULT_OUTAGE}, std {FAULT_DEGRADED_STD:g} m in {FAULT_DEGRADED}, std 0 at "
+          f"{FAULT_ZERO_STD:g} s), {len(frame_times)} frames 160x120 (glitch {FAULT_GLITCH}, blackout "
+          f"{FAULT_BLACKOUT}), made in {secs:.2f} s on the CPU")
+    assert cfg.track_check_histogram and cfg.optimize_estimate_td and cfg.optimize_estimate_extrinsic
+    long_kernel_checks(torch, _kernel_modules(), lambda k: images[k], cfg, camera, checked=FAULT_CHECKED,
+                       label="fault world")
+    run, launches = counted_run(wrappers, lambda: estimation_run(torch, DEVICE, cfg, imu, gnss, frame_times, images,
+                                                                 trace=True, faults=True))
+    m, c, rec = run.model, run.log.counts, run.faults.record()
+    sim_s = float((run.stop if run.stop is not None else imu["time"][-1]) - imu["time"][0])
+    print(f"[fault] replay {sim_s:.2f} s simulated in {run.wall:.3f} s wall (its CPU twin beside it with "
+          f"{GVINS_TWIN_CORES} threads): {sim_s / run.wall:.3f} sim-s per wall-s; {c['frames']} frames, "
+          f"{c['episodes']} keyframe episodes, {c['margs']} marginalizations; solver tiers {m.tier_counts}, "
+          f"marginalization tiers {m.tier_counts_marg}; launches {launches} ({card})")
+    print(f"[fault] gate decisions (adopted, refused): {run.log.adoptions()}; final td {m.td_b_c:.6f} s, |t_b_c| "
+          f"{np.linalg.norm(m.pose_b_c_t):.4f} m")
+    print_faults("fault", rec, gnss)
+    if run.refused is not None:
+        print(f"[fault] the replay stopped after the frame at {run.stop:.2f} s: {run.refused} (the JAX package "
+              f"refuses such a slide alike: ROADMAP R1)")
+    failed, not_met = judge("fault", fault_gates(m, run.traj, truth, rec, gnss, float(frame_times[-1])), run.stop)
+    return launches, failed, not_met, run.trace, rec, gnss
+
+
+def fault_wide_check(torch, card, wrappers):
+    """Phase 12 (b): the same faults at full width, on the card: the
+    production envelope's scene and configuration
+    (scripts/bench_production_torch.py: 1278x1022, the corridor, earth rate
+    on, estimation off, 200 features) with the histogram gate on, as the
+    KAIST gvins.yaml has it, and ``isusegnssoutage`` from
+    FAULT_OUTAGE_AFTER s, over the fault world's 40 s drive. No twin: the
+    gates of (a), each kernel against its plain version on FAULT_CHECKED's
+    frames, sim-s per wall-s, frames per second, the device busy share over
+    FAULT_PROFILED's episodes and the launches. Returns (launches, failed
+    gates, gates not met)."""
+    from ic_gvins_tpu_torch.core import rotation_np
+    from ic_gvins_tpu_torch.engine.config import parse_config
+    from ic_gvins_tpu_torch.vision import camera as cam
+
+    bp = load_script("bench_production_torch")
+    t0 = time.perf_counter()
+    imu, gnss, truth, frame_times, frame = fault_world(cam, rotation_np, camera=bp.CAMERA, blob=bp.BLOB,
+                                                       scene=bp.corridor, with_earth=True)
+    cfg = parse_config(fault_config(dict(bp.PROD_RAW, track_check_histogram=True), truth, bp.CAMERA,
+                                    FAULT_OUTAGE_AFTER))
+    t_render = time.perf_counter()
+    images = [frame(k).astype(np.float32) for k in range(len(frame_times))]   # rendered up front, apart from the replay
+    print(f"[fault wide] world: {FAULT_DURATION:g} s drive (earth rate on), {len(gnss['time'])} GNSS fixes, "
+          f"{len(frame_times)} frames {bp.W}x{bp.H} over the production corridor, rendered in "
+          f"{time.perf_counter() - t_render:.2f} s ({time.perf_counter() - t0:.2f} s with the drive) on the CPU; "
+          f"gnssoutagetime {cfg.gnssoutagetime} s")
+    assert cfg.track_check_histogram and cfg.isusegnssoutage and not cfg.optimize_estimate_td
+    long_kernel_checks(torch, _kernel_modules(), lambda k: images[k], cfg, cam.PinholeCamera.from_config(*bp.CAMERA),
+                       checked=FAULT_CHECKED, min_joints=FAULT_WIDE_MIN_JOINTS, label="fault world 1278x1022")
+    run, launches = counted_run(wrappers, lambda: estimation_run(torch, DEVICE, cfg, imu, gnss, frame_times, images,
+                                                                 profiled=FAULT_PROFILED, faults=True))
+    m, c, rec = run.model, run.log.counts, run.faults.record()
+    sim_s = float((run.stop if run.stop is not None else imu["time"][-1]) - imu["time"][0])
+    print(f"[fault wide] replay {sim_s:.2f} s simulated in {run.wall:.3f} s wall ({run.frames.prof_frames_s:.3f} s "
+          f"of it the frames under torch.profiler): {sim_s / run.wall:.3f} sim-s per wall-s, "
+          f"{len(frame_times) / run.wall:.3f} frames per second (the envelope's count: {len(frame_times)} frames, "
+          f"{len(run.frames.rows)} of them processed after the initialization); {c['episodes']} keyframe "
+          f"episodes, {c['margs']} marginalizations; solver tiers {m.tier_counts}, marginalization tiers "
+          f"{m.tier_counts_marg}; launches {launches} ({card})")
+    frames = run.frames
+    if frames.prof_wall_ms is None:
+        print(f"[fault wide] profiler: the window {FAULT_PROFILED} was not completed")
+    else:
+        kernels, busy = device_activity(torch, frames.prof, frames.prof_wall_ms)
+        if kernels is None:
+            print("[fault wide] profiler: no device events in the trace; busy share not measured")
+        else:
+            print(f"[fault wide] profiler, episodes {FAULT_PROFILED[0]}-{FAULT_PROFILED[1] - 1} and the frames "
+                  f"between: {kernels / (FAULT_PROFILED[1] - FAULT_PROFILED[0]):.0f} CUDA kernels per episode, "
+                  f"device busy {busy:.2f} of {frames.prof_wall_ms:.2f} ms = "
+                  f"{100 * busy / frames.prof_wall_ms:.1f} % ({card})")
+    print_faults("fault wide", rec, gnss, FAULT_OUTAGE_AFTER)
+    if run.refused is not None:
+        print(f"[fault wide] the replay stopped after the frame at {run.stop:.2f} s: {run.refused} (the JAX package "
+              f"refuses such a slide alike: ROADMAP R1)")
+    failed, not_met = judge("fault wide", fault_gates(m, run.traj, truth, rec, gnss, float(frame_times[-1]),
+                                                      FAULT_OUTAGE_AFTER), run.stop)
+    return launches, failed, not_met
+
+
+def fault_phase(torch, card, wrappers):
+    """Phase 12: the GVINS fault paths to their end. (a) ``fault_check`` on
+    the card, then against the CPU (this script run again as a child
+    process from the phase's start, ``--fault-cpu-twin``) over the frames
+    before FAULT_TWIN_UNTIL s, up to the first frame at which the two
+    replays part (``first_parting``), which is printed with what differs
+    there; positions within GVINS_CUDA_CPU_TOL before it. (b)
+    ``fault_wide_check``. Every kernel must launch in both replays. Returns
+    the kernels' launches in each replay."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        twin_out = os.path.join(tmp, "fault_cpu_twin.pkl")
+        child = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--fault-cpu-twin", twin_out,
+                                  repr(FAULT_TWIN_UNTIL)], stdout=sys.stderr)
+        try:
+            launches["fault_world_160x120"], failed, not_met, trace_g, rec_g, gnss = fault_check(torch, card,
+                                                                                                 wrappers)
+            launches["fault_world_1278x1022"], f, n = fault_wide_check(torch, card, wrappers)
+            failed, not_met = failed + f, not_met + n
+            t_wait = time.perf_counter()
+            rc = child.wait(timeout=900)
+            t_wait = time.perf_counter() - t_wait
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        assert rc == 0, f"phase 12's CPU twin exited with {rc}"
+        with open(twin_out, "rb") as fh:
+            summary_c, trace_c, rec_c = pickle.load(fh)
+    k, _, before, _ = first_parting(trace_g, trace_c)
+    n = len(trace_c) if k is None else k
+    until = trace_c[n - 1]["stamp"] + 0.005 if n else 0.0
+    same_states = [x for x in rec_g["tracked"] if x[0] < until] == [x for x in rec_c["tracked"] if x[0] < until]
+    print(f"[fault] CUDA against CPU over the frames before {FAULT_TWIN_UNTIL:g} s ({len(trace_c)} frames; the CPU "
+          f"in the child process, {summary_c['wall_s']:.1f} s wall, {t_wait:.1f} s of it waited for, "
+          f"{summary_c['episodes']} episodes, state {summary_c['state']}): "
+          f"{describe_parting('card', 'cpu', trace_g, trace_c, LONG_RAW['track_min_parallax'])}; the tracker's "
+          f"states equal before it: {same_states}")
+    print_faults("fault cpu", rec_c, {k: v[gnss["time"] < FAULT_TWIN_UNTIL] for k, v in gnss.items()})
+    assert k is None or k > 0, "the fault world's replays part at its first frame"
+    assert before["pos_m"] < GVINS_CUDA_CPU_TOL, f"episode positions {before['pos_m']} m apart before the parting"
+    for path, n_launch in launches.items():
+        print(f"[fault] launches in the {path} replay {n_launch}")
+        assert all(v > 0 for v in n_launch.values()), f"a kernel was not launched in the {path} replay"
+    if not_met:
+        print(f"[fault] NOT MET, the replay stopped by the refusal the JAX package makes alike (ROADMAP R1): "
+              f"{not_met}")
+    print(f"[fault] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    assert not failed, f"phase 12 gates failed: {failed}"
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -3379,13 +3823,19 @@ def main():
     t_mark = time.perf_counter()
     estimation_launches = estimation_phase(torch, card, wrappers)
     phase_s[11] = time.perf_counter() - t_mark
+
+    # ---- phase 12: the fault paths to their end, at 160x120 and 1278x1022 --
+    t_mark = time.perf_counter()
+    fault_launches = fault_phase(torch, card, wrappers)
+    phase_s[12] = time.perf_counter() - t_mark
     for k in records:
         records[k]["launches_by_path"] = {"frontend_slice": records[k]["launches"],
                                           "gvins_replay": int(replay_launches[k]),
                                           "long_fault_replay": int(long_launches[k]),
                                           "fleet_frontend": int(fleet_launches[k]),
                                           **{path: int(n[k]) for path, n in script_launches.items()},
-                                          **{f"{path}_replay": int(n[k]) for path, n in estimation_launches.items()}}
+                                          **{f"{path}_replay": int(n[k]) for path, n in estimation_launches.items()},
+                                          **{f"{path}_replay": int(n[k]) for path, n in fault_launches.items()}}
         records[k]["launches"] = int(long_launches[k])
     print(f"[phases] seconds by phase {json.dumps({str(k): round(v, 1) for k, v in sorted(phase_s.items())})}, "
           f"total {time.perf_counter() - t_start:.1f} s")
@@ -3407,6 +3857,10 @@ if __name__ == "__main__":
             pickle.dump((td_replay("cpu", GVINS_TWIN_CORES, float(sys.argv[3])),
                          stab_trace_run(__import__("torch"), "cpu", float(sys.argv[4]), cores=GVINS_TWIN_CORES,
                                         until=float(sys.argv[5]))), f)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--fault-cpu-twin"]:    # phase 12's child process
+        with open(sys.argv[2], "wb") as f:
+            pickle.dump(fault_trace_run(__import__("torch"), "cpu", float(sys.argv[3]), cores=GVINS_TWIN_CORES), f)
         sys.exit(0)
     if sys.argv[1:2] == ["--stab-trace"]:        # stability_parting's child process
         with open(sys.argv[2], "wb") as f:

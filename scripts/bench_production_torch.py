@@ -47,6 +47,15 @@ import chip_smoke as cs  # noqa: E402
 W, H = 1278, 1022
 FX = 700.0
 ATE_GATE_M = 0.25
+CAMERA = ([FX, FX, W / 2.0, H / 2.0], [-0.05, 0.01, 0.0, 0.0], [W, H])   # intrinsic, distortion, resolution
+BLOB = (2.2, 6)                  # blob sigma and half-width (px)
+# the production configuration: earth rate on, extrinsic and td estimation
+# off, 200 features, 10 keyframes, the production slots
+PROD_RAW = dict(initlength=3, imudatarate=200, iswithearth=True,
+                imumodel=dict(arw=0.1, vrw=0.1, gbstd=400.0, abstd=400.0, corrtime=1.0), gnssthreshold=20,
+                optimize_windows_size=10, optimize_num_iterations=20, optimize_estimate_extrinsic=False,
+                optimize_estimate_td=False, track_min_parallax=20, track_max_interval=0.5, track_max_features=200,
+                reprojection_error_std=1.5, node_slots=20, landmark_slots=512, gnss_slots=24, reproj_slots=2048)
 
 
 def _render(camera, pts_w, Rwb, twb):
@@ -54,7 +63,7 @@ def _render(camera, pts_w, Rwb, twb):
     projections over a flat background: the JAX script's ``_render``."""
     from ic_gvins_tpu_torch.vision import camera as cam
 
-    return cs.ground_frame(cam, camera, pts_w, Rwb, twb, 2.2, 6)
+    return cs.ground_frame(cam, camera, pts_w, Rwb, twb, *BLOB)
 
 
 def corridor(truth, rate=200.0, per_anchor=120, seed=7):
@@ -72,14 +81,7 @@ def corridor(truth, rate=200.0, per_anchor=120, seed=7):
 def production_config(truth):
     from ic_gvins_tpu_torch.engine.config import parse_config
 
-    return parse_config(dict(
-        initlength=3, imudatarate=200, iswithearth=True, antlever=list(truth["lever"]),
-        imumodel=dict(arw=0.1, vrw=0.1, gbstd=400.0, abstd=400.0, corrtime=1.0), gnssthreshold=20,
-        optimize_windows_size=10, optimize_num_iterations=20, optimize_estimate_extrinsic=False,
-        optimize_estimate_td=False, track_min_parallax=20, track_max_interval=0.5, track_max_features=200,
-        reprojection_error_std=1.5, node_slots=20, landmark_slots=512, gnss_slots=24, reproj_slots=2048,
-        cam0=dict(intrinsic=[FX, FX, W / 2.0, H / 2.0], distortion=[-0.05, 0.01, 0.0, 0.0], resolution=[W, H],
-                  q_b_c=[0.0, 0.0, 0.0, 1.0], t_b_c=[0.0, 0.0, 0.0], td_b_c=0.0)))
+    return parse_config(cs.gvins_raw(truth, PROD_RAW, CAMERA))
 
 
 def main(argv=None, duration=None):
@@ -103,7 +105,7 @@ def main(argv=None, duration=None):
     imu, gnss, truth = cs.gins_world(turn_duration=duration - 6.0, with_earth=True)
     cfg = production_config(truth)
     pts_w = corridor(truth)
-    camera = cam.PinholeCamera.from_config([FX, FX, W / 2.0, H / 2.0], [-0.05, 0.01, 0.0, 0.0], [W, H])
+    camera = cam.PinholeCamera.from_config(*CAMERA)
     rate = 200.0
     frame_times = np.arange(0.05, imu["time"][-1] - 0.2, 0.1)
 

@@ -23,7 +23,13 @@ The slow tests (``-m slow -s``, they print what ROADMAP R1 records):
   20 s and more, then part: the frame where they part and both outcomes
   are printed;
 - both frontends alone at the true poses across the blackout: the same
-  states on every frame, TRACK_LOST at its first frame."""
+  states on every frame, TRACK_LOST at its first frame.
+
+The fault paths that this world reaches only after the refusal (the
+histogram gate, the GNSS outage, TRACK_LOST over the blackout, the GNSS
+ingest gates) run to their end in ``chip_smoke.fault_world``, a 40 s drive
+with the faults inside it: tests/test_torch_faults.py holds both packages'
+replays of it, and ``chip_smoke.py`` phase 12 runs it on the card."""
 
 import os
 import pickle
