@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from test_torch_harness import jax_compile_cache  # noqa: F401 (autouse: the run's compile cache)
 from test_vision_kernels import kaist_camera
 from ic_gvins_tpu.core import quaternion as quat
 from ic_gvins_tpu.vision import camera as jcam

@@ -17,6 +17,7 @@ import torch
 
 import synthetic as syn
 from test_checkpoint import build_estimator
+from test_torch_harness import jax_compile_cache  # noqa: F401 (autouse: the run's compile cache)
 from ic_gvins_tpu.engine import checkpoint as jckpt
 from ic_gvins_tpu.engine import estimator as jest
 from ic_gvins_tpu.solver import lm as jlm

@@ -13,6 +13,8 @@ import pytest
 import torch
 from torch.autograd.functional import jacobian
 
+from test_torch_harness import jax_compile_cache  # noqa: F401 (autouse: the run's compile cache)
+
 from ic_gvins_tpu.core import quaternion as jquat
 from ic_gvins_tpu.core.types import ImuBatch as JImu
 from ic_gvins_tpu.core.types import IntegrationParams as JParams

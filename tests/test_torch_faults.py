@@ -18,7 +18,7 @@ Tier-1:
   masks;
 - the fault replay with ``FAULT_RAW`` (LONG_RAW with extrinsic and td
   estimation off) through the JAX package (its solve in f64, in
-  tests/test_torch_gvins.py's child process with sync dispatch) and the port
+  tests/test_torch_harness.py's child process with sync dispatch) and the port
   (the JAX RANSAC table) at the same time, cut at the frames before 35 s: on
   every frame through the blackout's end + 3 s the model state, keyframe
   episodes, node count and the tracker's state are equal and positions
@@ -52,7 +52,8 @@ import chip_smoke
 import test_gvins_long_e2e as ref
 from gins_data import make_gins_dataset
 from test_torch_gins import PRECISE, _precise_solve_jit, assert_twins, raw_cfg
-from test_torch_gvins import jax_child, jax_result
+from test_torch_harness import jax_child, jax_result, kill_if_running
+from test_torch_harness import jax_compile_cache  # noqa: F401 (autouse: the run's compile cache)
 from test_torch_long_e2e import _logged_run
 from ic_gvins_tpu.core import quaternion as jquat
 from ic_gvins_tpu.vision import camera as jcam
@@ -63,6 +64,7 @@ from ic_gvins_tpu_torch.vision.tracking import TRACK_LOST, TRACK_PASSED
 UNTIL = 35.0                      # s: the tier-1 twin replays the frames before this stamp
 HELD_UNTIL = chip_smoke.FAULT_BLACKOUT[1] + 3.0   # s: the twins agree on every frame through this stamp
 POS_TOL = 1e-3                    # m: positions, JAX against the port (tests/test_torch_long_e2e.py's)
+FAULTS_CHILD_LIMIT = 420          # s: ~3x the tier-1 JAX child's wall alone on an 8-core CPU (139.5 s)
 # frames: a normal one (10.05 s), a glitch frame (14.05 s), a blackout frame
 # (30.05 s) and the first frame after the blackout (31.55 s)
 FRAMES = (100, 140, 300, 315)
@@ -174,7 +176,7 @@ def jax_fault_run(config, outage_after, until, traced, out_path):
 
 
 def _start_jax(out_dir, config, outage_after=None, until=None, traced=False):
-    """``jax_fault_run`` in tests/test_torch_gvins.py's child process (sync
+    """``jax_fault_run`` in tests/test_torch_harness.py's child process (sync
     dispatch): (the child, the path it pickles to)."""
     out_path = os.path.join(out_dir, f"jax_{config}_{outage_after}_{until}.pkl")
     child = jax_child("test_torch_faults:jax_fault_run", config, str(outage_after).lower(), str(until).lower(),
@@ -182,11 +184,12 @@ def _start_jax(out_dir, config, outage_after=None, until=None, traced=False):
     return child, out_path
 
 
-def _port_then_jax(jax, config, outage_after=None, until=None, traced=False, threads=None):
+def _port_then_jax(jax, config, outage_after=None, until=None, traced=False, threads=None, limit=3000):
     """The port's replay here (the JAX RANSAC table; with ``threads`` torch
     threads) while the JAX one started by ``_start_jax`` runs, then the
-    JAX one's result: ((rows, error, record, summary) of the JAX replay,
-    the same of the port's, the world's GNSS fixes)."""
+    JAX one's result, waited for at most ``limit`` seconds: ((rows, error,
+    record, summary) of the JAX replay, the same of the port's, the world's
+    GNSS fixes)."""
     from test_torch_tracking import _jax_table
     from ic_gvins_tpu_torch.models.gvins import GvinsModel as TGvins
     from ic_gvins_tpu_torch.vision import ransac as transac
@@ -206,49 +209,18 @@ def _port_then_jax(jax, config, outage_after=None, until=None, traced=False, thr
     finally:
         mp.undo()
         torch.set_num_threads(saved)
-        jax_out = jax_result(*jax, timeout=3000)
+        jax_out = jax_result(*jax, timeout=limit)
     return jax_out, port, gnss
 
 
 @pytest.fixture(scope="module")
-def jax_fault_twin(tmp_path_factory):
+def jax_fault_twin(jax_compile_cache, tmp_path_factory):
     """The JAX replay of the tier-1 twin (FAULT_RAW, the frames before
     UNTIL) in a child process. The file's first test starts it, so that it
     runs beside the cheaper tests."""
     child, out_path = _start_jax(str(tmp_path_factory.mktemp("jax_faults")), "FAULT_RAW", until=UNTIL)
     yield child, out_path
-    if child.poll() is None:
-        child.kill()
-        child.wait()
-
-
-def test_fault_replay_matches_jax_through_the_faults(jax_fault_twin):
-    (jlog, jerr, jrec, _), (tlog, terr, trec, _), gnss = _port_then_jax(jax_fault_twin, "FAULT_RAW", until=UNTIL,
-                                                                        threads=1)
-    assert jerr is None and terr is None, (jerr, terr)
-    assert len(jlog) == len(tlog) and jlog[-1][0] < UNTIL
-    held = [i for i, row in enumerate(jlog) if row[0] <= HELD_UNTIL]
-    assert jlog[held[-1]][0] >= HELD_UNTIL - 0.1
-    for i in held:
-        a, b = jlog[i], tlog[i]
-        assert (a[0], a[1], a[2], len(a[3]), a[6]) == (b[0], b[1], b[2], len(b[3]), b[6]), (i, a[:3], b[:3])
-        np.testing.assert_allclose(b[4], a[4], atol=POS_TOL, rtol=0, err_msg=f"frame at {a[0]} s")
-    dp = max(float(np.abs(jlog[i][4] - tlog[i][4]).max()) for i in held)
-    print(f"\nJAX (f64 solve) and port agree on {len(held)} frames to {jlog[held[-1]][0]} s, positions within "
-          f"{dp:.3g} m; model states by frame {dict(collections.Counter(row[1] for row in tlog))}")
-
-    # the fault paths ran, on the same frames in both packages
-    for state, window in ((TRACK_PASSED, chip_smoke.FAULT_GLITCH), (TRACK_LOST, chip_smoke.FAULT_BLACKOUT)):
-        j, t = (chip_smoke.fault_states(r["tracked"], state, window) for r in (jrec, trec))
-        assert j == t and len(t) >= 1, (state, j, t)
-    dropped = chip_smoke.ingest_dropped(gnss, 20)
-    expected = sorted({round(float(t), 3) for t in gnss["time"]} - dropped)
-    assert sorted(dropped) == [10.0, 11.0, 28.0]
-    assert jrec["kept"] == trec["kept"] == expected
-    assert (jrec["sheds"], jrec["chained"]) == (trec["sheds"], trec["chained"])
-    print(f"TRACK_PASSED at {chip_smoke.fault_states(trec['tracked'], TRACK_PASSED)}, TRACK_LOST at "
-          f"{chip_smoke.fault_states(trec['tracked'], TRACK_LOST)} in both; node sheds {trec['sheds']}, chained "
-          f"nodes {trec['chained']} in both")
+    kill_if_running(child)
 
 
 @pytest.mark.usefixtures("jax_fault_twin")
@@ -281,6 +253,35 @@ def test_ingest_gates_in_gins_model():
     assert jlog.chained == tlog.chained == [15.55]          # 13 s + (512 - 2) / 200 s
     assert tt[-1, 0] == 17.0
     assert_twins(jm, jt, tm, tt, PRECISE)
+
+
+def test_fault_replay_matches_jax_through_the_faults(jax_fault_twin):
+    (jlog, jerr, jrec, _), (tlog, terr, trec, _), gnss = _port_then_jax(jax_fault_twin, "FAULT_RAW", until=UNTIL,
+                                                                        threads=1, limit=FAULTS_CHILD_LIMIT)
+    assert jerr is None and terr is None, (jerr, terr)
+    assert len(jlog) == len(tlog) and jlog[-1][0] < UNTIL
+    held = [i for i, row in enumerate(jlog) if row[0] <= HELD_UNTIL]
+    assert jlog[held[-1]][0] >= HELD_UNTIL - 0.1
+    for i in held:
+        a, b = jlog[i], tlog[i]
+        assert (a[0], a[1], a[2], len(a[3]), a[6]) == (b[0], b[1], b[2], len(b[3]), b[6]), (i, a[:3], b[:3])
+        np.testing.assert_allclose(b[4], a[4], atol=POS_TOL, rtol=0, err_msg=f"frame at {a[0]} s")
+    dp = max(float(np.abs(jlog[i][4] - tlog[i][4]).max()) for i in held)
+    print(f"\nJAX (f64 solve) and port agree on {len(held)} frames to {jlog[held[-1]][0]} s, positions within "
+          f"{dp:.3g} m; model states by frame {dict(collections.Counter(row[1] for row in tlog))}")
+
+    # the fault paths ran, on the same frames in both packages
+    for state, window in ((TRACK_PASSED, chip_smoke.FAULT_GLITCH), (TRACK_LOST, chip_smoke.FAULT_BLACKOUT)):
+        j, t = (chip_smoke.fault_states(r["tracked"], state, window) for r in (jrec, trec))
+        assert j == t and len(t) >= 1, (state, j, t)
+    dropped = chip_smoke.ingest_dropped(gnss, 20)
+    expected = sorted({round(float(t), 3) for t in gnss["time"]} - dropped)
+    assert sorted(dropped) == [10.0, 11.0, 28.0]
+    assert jrec["kept"] == trec["kept"] == expected
+    assert (jrec["sheds"], jrec["chained"]) == (trec["sheds"], trec["chained"])
+    print(f"TRACK_PASSED at {chip_smoke.fault_states(trec['tracked'], TRACK_PASSED)}, TRACK_LOST at "
+          f"{chip_smoke.fault_states(trec['tracked'], TRACK_LOST)} in both; node sheds {trec['sheds']}, chained "
+          f"nodes {trec['chained']} in both")
 
 
 @pytest.mark.slow

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 import chip_smoke
+from test_torch_harness import jax_compile_cache  # noqa: F401 (autouse: the run's compile cache)
 from test_vision_kernels import synth_image
 from ic_gvins_tpu.vision import features as jfeat
 from ic_gvins_tpu_torch.ops import subpix as ksubpix

@@ -36,8 +36,6 @@ import functools
 import inspect
 import os
 import pickle
-import subprocess
-import sys
 import types
 
 import jax
@@ -49,6 +47,8 @@ import torch
 from gins_data import make_gins_dataset
 from test_gvins_e2e import FX, H, W, render_frame
 from test_torch_gins import _precise_solve_jit
+from test_torch_harness import jax_child, jax_result, kill_if_running, module_reads
+from test_torch_harness import jax_compile_cache  # noqa: F401 (autouse: the run's compile cache)
 from test_torch_tracking import _jax_table
 from ic_gvins_tpu.core import quaternion as jquat
 from ic_gvins_tpu.engine import estimator as jest
@@ -67,6 +67,7 @@ from ic_gvins_tpu_torch.vision import ransac as transac
 torch.set_num_threads(1)
 RATE = 200.0
 TWIN = dict(pos=5e-5, att=2e-5, vel=2e-5, features=2)
+GVINS_CHILD_LIMIT = 420   # s: ~3x the JAX child's wall alone on an 8-core CPU (140.1 s)
 
 
 def raw_cfg(truth, **kw):
@@ -115,33 +116,6 @@ def spy(mp, cls, name, log, what):
     mp.setattr(cls, name, wrapped)
 
 
-TESTS = os.path.dirname(os.path.abspath(__file__))
-# JAX replays run in a child process with the CPU client's async dispatch
-# off: with it on, a device read of a host mirror can race the mirror's
-# in-place edit, and a JAX trajectory then moves with the load of the
-# machine (ROADMAP R3). With it off a JAX replay is the same under any load
-# and equals a run alone. A tier-1 process has started its CPU client before
-# a fixture runs, so the setting needs a process of its own.
-_JAX_CHILD = ("import importlib, sys; sys.path[:0] = sys.argv[1:3]; import conftest, jax; "
-              "jax.config.update('jax_cpu_enable_async_dispatch', sys.argv[3] == 'async'); "
-              "module, name = sys.argv[4].split(':'); getattr(importlib.import_module(module), name)(*sys.argv[5:])")
-
-
-def jax_child(target, *args, dispatch="sync"):
-    """Start ``module:function(*args)`` of tests/ in a child process, the JAX
-    CPU client's dispatch ``sync`` or ``async``."""
-    return subprocess.Popen([sys.executable, "-c", _JAX_CHILD, TESTS, os.path.dirname(TESTS), dispatch, target,
-                             *args], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-
-def jax_result(child, out_path, timeout=1200):
-    """Wait for a ``jax_child``; returns what it pickled to out_path."""
-    out, _ = child.communicate(timeout=timeout)
-    assert child.returncode == 0, out
-    with open(out_path, "rb") as f:
-        return pickle.load(f)
-
-
 def _state(self, _):
     return self.state, self.est.n_nodes if self.est else 0
 
@@ -168,36 +142,21 @@ def jax_replay(outdir, out_path):
         pickle.dump((model, np.asarray(jt), log), f)
 
 
-@pytest.fixture(scope="module")
-def replays(tmp_path_factory):
-    """Both replays with output files and visualization on: the JAX one in
-    a child process (``jax_replay``; ``jm`` is what it reports of its
-    model), the port's here meanwhile. The port's run also packs every
-    episode's reprojection table with the JAX function on the port's own
-    map and window."""
-    imu, gnss, truth, frame_times, images = world()
-    dirs = (str(tmp_path_factory.mktemp("jax_gvins")), str(tmp_path_factory.mktemp("port_gvins")))
-    out_path = os.path.join(dirs[0], "jax_replay.pkl")
-    child = jax_child("test_torch_gvins:jax_replay", dirs[0], out_path)
-    logs = {"port": [], "packs": []}
-
-    def packed_by_jax(self, out):
-        slots = self._lm_slots
-        proxy = types.SimpleNamespace(wcfg=self.wcfg, est=self.est, vmap=self.vmap, camera=self.camera)
-        return out, JGvins._build_reproj_table(proxy, slots)
-
-    mp = pytest.MonkeyPatch()
-    try:
-        mp.setattr(transac, "_draw_samples", lambda valid, num_hyp, generator:
-                   torch.tensor(np.asarray(_jax_table(jnp.asarray(valid.numpy())))))
-        spy(mp, TGvins, "_process_frame", logs["port"], _state)
-        spy(mp, TGvins, "_build_reproj_table", logs["packs"], packed_by_jax)
-        tm = TGvins(tparse(raw_cfg(truth)), outdir=dirs[1], device="cpu")
-        tt = tm.run(imu, gnss, frame_times, lambda k: images[k])
-    finally:
-        mp.undo()
-        model, jt, logs["jax"] = jax_result(child, out_path)
-    return types.SimpleNamespace(**model), jt, tm, tt, truth, dirs, logs
+@pytest.fixture(scope="module", autouse=True)
+def jax_gvins_child(request, jax_compile_cache, tmp_path_factory):
+    """The JAX replay (``jax_replay``) in a child process started with the
+    module, so that it runs while the tests that need no replay, which come
+    first, and the port's replay run: (child, its output directory, pickle
+    path), or None where no test of the module reads the replays. Killed at
+    the module's end if still running."""
+    if not module_reads(request, "replays"):
+        yield None
+        return
+    outdir = str(tmp_path_factory.mktemp("jax_gvins"))
+    out_path = os.path.join(outdir, "jax_replay.pkl")
+    child = jax_child("test_torch_gvins:jax_replay", outdir, out_path)
+    yield child, outdir, out_path
+    kill_if_running(child)
 
 
 @pytest.mark.slow
@@ -213,7 +172,7 @@ def test_jax_twin_is_the_same_under_load(tmp_path):
             d.mkdir()
             kids.append((jax_child("test_torch_gvins:jax_replay", str(d), str(d / "out.pkl"), dispatch=dispatch),
                          str(d / "out.pkl")))
-        return [jax_result(child, path)[1] for child, path in kids]
+        return [jax_result(child, path, timeout=1200)[1] for child, path in kids]
 
     alone = runs("alone", "sync", 1)[0]
     diffs = {}
@@ -222,92 +181,6 @@ def test_jax_twin_is_the_same_under_load(tmp_path):
                            for t in runs(dispatch, dispatch, 4)]
     print(f"\nfour copies at once against the run alone, largest position difference (m): {diffs}")
     assert diffs["sync"] == [0.0] * 4
-
-
-def test_replay_matches_jax_twin(replays):
-    jm, jt, tm, tt, _, _, logs = replays
-    assert tm.state == jm.state == "TRACKING_NORMAL"
-    assert logs["port"] == logs["jax"]                                   # state after every frame
-    assert tm.tier_counts == jm.tier_counts and tm.tier_counts_marg == jm.tier_counts_marg
-    assert sum(tm.tier_counts.values()) >= 10 and sum(tm.tier_counts_marg.values()) >= 3
-    assert tt.shape == jt.shape
-    np.testing.assert_array_equal(tt[:, 0], jt[:, 0])                      # node times
-    np.testing.assert_allclose(tt[:, 1:4], jt[:, 1:4], atol=TWIN["pos"], rtol=0)
-    np.testing.assert_allclose(tt[:, 4:8], jt[:, 4:8], atol=TWIN["att"], rtol=0)
-    assert tm.est.n_nodes == jm.n_nodes
-    np.testing.assert_array_equal(tm.est.times, jm.times)
-    np.testing.assert_allclose(tm.est.mixes[:, :3], jm.mixes[:, :3], atol=TWIN["vel"], rtol=0)
-    assert len(tm.vmap.keyframes) == jm.n_keyframes
-    assert abs(len(tm.vmap.landmarks) - jm.n_landmarks) <= TWIN["features"]
-    assert tm.est.check_time_consistency() == []
-
-
-def test_replay_accuracy_and_outputs(replays):
-    """The gates of tests/test_gvins_e2e.py on the port's run, and its
-    output files against the JAX run's: the same rows of statistics.txt,
-    tracking.txt and gvins.nav, the reference column counts, and the
-    drawer's artifacts."""
-    jm, _, tm, tt, truth, (jdir, tdir), _ = replays
-    idx = np.round(tt[:, 0] * RATE).astype(int) - 1
-    err = np.linalg.norm(tt[:, 1:4] + truth["gnss_local"][0] - truth["p"][idx], axis=1)
-    assert err.mean() < 0.12 and err.max() < 0.4, err
-    assert len(tm.vmap.landmarks) >= 10
-    assert 2 <= len(tm.vmap.keyframes) <= tm.cfg.optimize_windows_size + 1
-    load = lambda d, n: np.atleast_2d(np.loadtxt(os.path.join(d, n)))  # noqa: E731
-    js, ts = load(jdir, "statistics.txt"), load(tdir, "statistics.txt")
-    assert ts.shape == js.shape and ts.shape[1] == 15 and len(ts) >= 3
-    assert np.median(ts[:, 6]) < 3.0
-    np.testing.assert_array_equal(ts[:, :3], js[:, :3])                   # stamps, gaps, frame ids
-    assert np.abs(ts[:, 3] - js[:, 3]).max() <= TWIN["features"]          # features of the keyframe
-    assert (ts[:, 10] > 0).all() and (ts[:, 11] > 0).all() and (ts[:, 12] > 0).any()
-    jk, tk = load(jdir, "tracking.txt"), load(tdir, "tracking.txt")
-    assert tk.shape == jk.shape and tk.shape[1] == 7
-    jn, tn = load(jdir, "gvins.nav"), load(tdir, "gvins.nav")
-    assert tn.shape == jn.shape and tn.shape[1] == 11
-    np.testing.assert_array_equal(tn[:, :2], jn[:, :2])
-    assert os.path.getsize(os.path.join(tdir, "mappoint.txt")) > 0
-    assert len(load(tdir, "mappoint.txt")) == len(load(jdir, "mappoint.txt"))
-    pngs = lambda d: sorted(os.listdir(os.path.join(d, "tracking")))  # noqa: E731
-    assert pngs(tdir) == pngs(jdir) and len(pngs(tdir)) >= 2
-    assert os.path.exists(os.path.join(tdir, "path.png"))
-    assert len(tm.drawer.fixed_points) == jm.n_fixed_points > 0
-
-
-def test_reproj_packing_matches_jax_on_every_episode(replays):
-    """``_build_reproj_table``: the packed (R, 18) rows and the row count of
-    every call of the port's replay (optimization episodes and
-    marginalization rebuilds) equal the JAX function's on the same map."""
-    *_, logs = replays
-    assert len(logs["packs"]) >= 10
-    assert max(n for (_, n), _ in logs["packs"]) > 50
-    for (packed, nrows), (jpacked, jnrows) in logs["packs"]:
-        assert nrows == jnrows
-        np.testing.assert_array_equal(packed, np.asarray(jpacked))
-
-
-def test_solve_tiers_agree(replays):
-    """The window of the finished replay solved at the small tier (the
-    tables truncated) and at the full tier (the prior's x0.invdepths resized
-    by build_tables): the same cost and, after three LM iterations, the same
-    node states within 1e-9."""
-    _, _, tm, _, _, _, _ = replays
-    est = tm.est
-    slots, inv, lmv = tm._assign_landmark_slots(count_optimized=False)
-    reproj, nrows = tm._build_reproj_table(slots)
-    assert nrows > 0 and est.marg_prior.x0.invdepths.shape[0] == est.wcfg_small.L < est.wcfg.L
-    out = {}
-    for wc in (est.wcfg_small, est.wcfg):
-        tables = est.build_tables(reproj_table=reproj[:wc.R], reproj_sqrt_info=tm.reproj_sqrt_info,
-                                  lm_valid=lmv[:wc.L], wc=wc)
-        params = est.build_params(invdepths=inv[:wc.L], wc=wc)
-        assert tables.marg.x0.invdepths.shape[0] == wc.L
-        cost = float(tprob.total_cost(params, tables, wc))
-        solved, _, _ = tlm.solve(params, tables, wc, 3)
-        out[wc.L] = cost, solved.poses.numpy(), solved.mixes.numpy()
-    (cs, ps, ms), (cf, pf, mf) = out[est.wcfg_small.L], out[est.wcfg.L]
-    np.testing.assert_allclose(cf, cs, rtol=1e-12)
-    np.testing.assert_allclose(pf, ps, atol=1e-9, rtol=0)
-    np.testing.assert_allclose(mf, ms, atol=1e-9, rtol=0)
 
 
 def _twin_estimators():
@@ -521,3 +394,121 @@ def test_entry_point_defaults_to_cuda():
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             model.run(imu, gnss, np.zeros(0), lambda k: None)
+
+
+# The replays' twins come last: the JAX child runs while the tests above do.
+@pytest.fixture(scope="module")
+def replays(jax_gvins_child, tmp_path_factory):
+    """Both replays with output files and visualization on: the JAX one in
+    the child of ``jax_gvins_child`` (``jm`` is what it reports of its
+    model), the port's here meanwhile. The port's run also packs every
+    episode's reprojection table with the JAX function on the port's own
+    map and window."""
+    child, jdir, out_path = jax_gvins_child
+    dirs = (jdir, str(tmp_path_factory.mktemp("port_gvins")))
+    logs = {"port": [], "packs": []}
+
+    def packed_by_jax(self, out):
+        slots = self._lm_slots
+        proxy = types.SimpleNamespace(wcfg=self.wcfg, est=self.est, vmap=self.vmap, camera=self.camera)
+        return out, JGvins._build_reproj_table(proxy, slots)
+
+    mp = pytest.MonkeyPatch()
+    try:
+        imu, gnss, truth, frame_times, images = world()
+        mp.setattr(transac, "_draw_samples", lambda valid, num_hyp, generator:
+                   torch.tensor(np.asarray(_jax_table(jnp.asarray(valid.numpy())))))
+        spy(mp, TGvins, "_process_frame", logs["port"], _state)
+        spy(mp, TGvins, "_build_reproj_table", logs["packs"], packed_by_jax)
+        tm = TGvins(tparse(raw_cfg(truth)), outdir=dirs[1], device="cpu")
+        tt = tm.run(imu, gnss, frame_times, lambda k: images[k])
+    finally:
+        mp.undo()
+        model, jt, logs["jax"] = jax_result(child, out_path, timeout=GVINS_CHILD_LIMIT)
+    return types.SimpleNamespace(**model), jt, tm, tt, truth, dirs, logs
+
+
+def test_replay_matches_jax_twin(replays):
+    jm, jt, tm, tt, _, _, logs = replays
+    assert tm.state == jm.state == "TRACKING_NORMAL"
+    assert logs["port"] == logs["jax"]                                   # state after every frame
+    assert tm.tier_counts == jm.tier_counts and tm.tier_counts_marg == jm.tier_counts_marg
+    assert sum(tm.tier_counts.values()) >= 10 and sum(tm.tier_counts_marg.values()) >= 3
+    assert tt.shape == jt.shape
+    np.testing.assert_array_equal(tt[:, 0], jt[:, 0])                      # node times
+    np.testing.assert_allclose(tt[:, 1:4], jt[:, 1:4], atol=TWIN["pos"], rtol=0)
+    np.testing.assert_allclose(tt[:, 4:8], jt[:, 4:8], atol=TWIN["att"], rtol=0)
+    assert tm.est.n_nodes == jm.n_nodes
+    np.testing.assert_array_equal(tm.est.times, jm.times)
+    np.testing.assert_allclose(tm.est.mixes[:, :3], jm.mixes[:, :3], atol=TWIN["vel"], rtol=0)
+    assert len(tm.vmap.keyframes) == jm.n_keyframes
+    assert abs(len(tm.vmap.landmarks) - jm.n_landmarks) <= TWIN["features"]
+    assert tm.est.check_time_consistency() == []
+
+
+def test_replay_accuracy_and_outputs(replays):
+    """The gates of tests/test_gvins_e2e.py on the port's run, and its
+    output files against the JAX run's: the same rows of statistics.txt,
+    tracking.txt and gvins.nav, the reference column counts, and the
+    drawer's artifacts."""
+    jm, _, tm, tt, truth, (jdir, tdir), _ = replays
+    idx = np.round(tt[:, 0] * RATE).astype(int) - 1
+    err = np.linalg.norm(tt[:, 1:4] + truth["gnss_local"][0] - truth["p"][idx], axis=1)
+    assert err.mean() < 0.12 and err.max() < 0.4, err
+    assert len(tm.vmap.landmarks) >= 10
+    assert 2 <= len(tm.vmap.keyframes) <= tm.cfg.optimize_windows_size + 1
+    load = lambda d, n: np.atleast_2d(np.loadtxt(os.path.join(d, n)))  # noqa: E731
+    js, ts = load(jdir, "statistics.txt"), load(tdir, "statistics.txt")
+    assert ts.shape == js.shape and ts.shape[1] == 15 and len(ts) >= 3
+    assert np.median(ts[:, 6]) < 3.0
+    np.testing.assert_array_equal(ts[:, :3], js[:, :3])                   # stamps, gaps, frame ids
+    assert np.abs(ts[:, 3] - js[:, 3]).max() <= TWIN["features"]          # features of the keyframe
+    assert (ts[:, 10] > 0).all() and (ts[:, 11] > 0).all() and (ts[:, 12] > 0).any()
+    jk, tk = load(jdir, "tracking.txt"), load(tdir, "tracking.txt")
+    assert tk.shape == jk.shape and tk.shape[1] == 7
+    jn, tn = load(jdir, "gvins.nav"), load(tdir, "gvins.nav")
+    assert tn.shape == jn.shape and tn.shape[1] == 11
+    np.testing.assert_array_equal(tn[:, :2], jn[:, :2])
+    assert os.path.getsize(os.path.join(tdir, "mappoint.txt")) > 0
+    assert len(load(tdir, "mappoint.txt")) == len(load(jdir, "mappoint.txt"))
+    pngs = lambda d: sorted(os.listdir(os.path.join(d, "tracking")))  # noqa: E731
+    assert pngs(tdir) == pngs(jdir) and len(pngs(tdir)) >= 2
+    assert os.path.exists(os.path.join(tdir, "path.png"))
+    assert len(tm.drawer.fixed_points) == jm.n_fixed_points > 0
+
+
+def test_reproj_packing_matches_jax_on_every_episode(replays):
+    """``_build_reproj_table``: the packed (R, 18) rows and the row count of
+    every call of the port's replay (optimization episodes and
+    marginalization rebuilds) equal the JAX function's on the same map."""
+    *_, logs = replays
+    assert len(logs["packs"]) >= 10
+    assert max(n for (_, n), _ in logs["packs"]) > 50
+    for (packed, nrows), (jpacked, jnrows) in logs["packs"]:
+        assert nrows == jnrows
+        np.testing.assert_array_equal(packed, np.asarray(jpacked))
+
+
+def test_solve_tiers_agree(replays):
+    """The window of the finished replay solved at the small tier (the
+    tables truncated) and at the full tier (the prior's x0.invdepths resized
+    by build_tables): the same cost and, after three LM iterations, the same
+    node states within 1e-9."""
+    _, _, tm, _, _, _, _ = replays
+    est = tm.est
+    slots, inv, lmv = tm._assign_landmark_slots(count_optimized=False)
+    reproj, nrows = tm._build_reproj_table(slots)
+    assert nrows > 0 and est.marg_prior.x0.invdepths.shape[0] == est.wcfg_small.L < est.wcfg.L
+    out = {}
+    for wc in (est.wcfg_small, est.wcfg):
+        tables = est.build_tables(reproj_table=reproj[:wc.R], reproj_sqrt_info=tm.reproj_sqrt_info,
+                                  lm_valid=lmv[:wc.L], wc=wc)
+        params = est.build_params(invdepths=inv[:wc.L], wc=wc)
+        assert tables.marg.x0.invdepths.shape[0] == wc.L
+        cost = float(tprob.total_cost(params, tables, wc))
+        solved, _, _ = tlm.solve(params, tables, wc, 3)
+        out[wc.L] = cost, solved.poses.numpy(), solved.mixes.numpy()
+    (cs, ps, ms), (cf, pf, mf) = out[est.wcfg_small.L], out[est.wcfg.L]
+    np.testing.assert_allclose(cf, cs, rtol=1e-12)
+    np.testing.assert_allclose(pf, ps, atol=1e-9, rtol=0)
+    np.testing.assert_allclose(mf, ms, atol=1e-9, rtol=0)

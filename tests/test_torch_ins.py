@@ -13,6 +13,8 @@ import pytest
 import torch
 
 import synthetic as syn
+from test_torch_harness import jax_compile_cache  # noqa: F401 (autouse: the run's compile cache)
+
 from ic_gvins_tpu.core import earth as jearth
 from ic_gvins_tpu.core import earth_np as jearth_np
 from ic_gvins_tpu.core import quaternion as jquat

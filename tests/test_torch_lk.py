@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_harness import jax_compile_cache  # noqa: F401 (autouse: the run's compile cache)
 from test_vision_kernels import shift_image, synth_image
 from ic_gvins_tpu.vision import features, lk, pyramid
 from ic_gvins_tpu_torch.convert import pyramid_from_numpy

@@ -42,7 +42,8 @@ import torch
 import chip_smoke
 import test_gvins_long_e2e as ref
 from gins_data import make_gins_dataset
-from test_torch_gvins import jax_child, jax_result
+from test_torch_harness import jax_child, jax_result
+from test_torch_harness import jax_compile_cache  # noqa: F401 (autouse: the run's compile cache)
 from ic_gvins_tpu.core import quaternion as jquat
 from ic_gvins_tpu.vision import camera as jcam
 from ic_gvins_tpu_torch.core import rotation_np

@@ -16,6 +16,7 @@ import torch
 
 from synthetic import stack_summaries
 from test_marginalization import CFG, N_NODES, build_world, make_tables
+from test_torch_harness import jax_compile_cache  # noqa: F401 (autouse: the run's compile cache)
 from ic_gvins_tpu.factors import marginalization as jmarg
 from ic_gvins_tpu.solver import problem as jprob
 from ic_gvins_tpu_torch import convert

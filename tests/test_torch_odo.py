@@ -12,9 +12,12 @@ whitened residual of scale 4e5; observed 9e-11), jacobians within 1e-12
 relative to their largest entry (observed 1e-16). Replays: the JAX solve
 patched to its f64 mode, as tests/test_torch_gins.py does; node times
 equal, positions 1e-8 m, attitudes 1e-9, velocities 1e-8 m/s, the
-odometer scale 1e-9."""
+odometer scale 1e-9. Both JAX replays run in one child process
+(tests/test_torch_harness.py, sync dispatch) started with the module, beside
+the preintegration and factor tests and the port's replays."""
 
 import functools
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +27,8 @@ import torch
 
 import test_preint_odo as ref
 from gins_data import make_gins_dataset
+from test_torch_harness import jax_child, jax_result, kill_if_running, module_reads
+from test_torch_harness import jax_compile_cache  # noqa: F401 (autouse: the run's compile cache)
 from ic_gvins_tpu.engine import estimator as jest
 from ic_gvins_tpu.engine.config import parse_config as jparse
 from ic_gvins_tpu.factors import basic as jbasic
@@ -47,6 +52,7 @@ TOL = dict(dt=1e-12, dp=1e-10, dv=1e-10, dq=1e-12, ds=1e-10, bg0=0, ba0=0, sodo0
            sum_dtpn=1e-8, end_p=1e-9, end_q=1e-12, end_v=1e-10, end_time=0)
 REL = dict(cov=1e-9, sqrt_info=1e-7)
 SCALE_ERR = 0.01
+ODO_CHILD_LIMIT = 470   # s: ~3x the JAX child's wall alone on an 8-core CPU (155.4 s, both replays)
 _precise_solve_jit = functools.partial(jax.jit, static_argnums=(2, 3))(
     lambda p, t, wc, iters: jlm.solve(p, t, wc, iters, precise=True)[:2])
 
@@ -177,37 +183,41 @@ def _odo_world(with_earth):
     return imu, gnss, truth, raw
 
 
-@pytest.mark.parametrize("with_earth", [False, True], ids=["odo", "earth_odo"])
-def test_odo_replay_matches_jax(with_earth):
-    """test_gins_e2e.py::test_odo_replay_converges (earth off) and
-    ::test_earth_odo_replay (earth on) on both packages: the port's
-    trajectory, velocities and odometer scale against the JAX twin (f64
-    solve), and the JAX test's gates against the truth."""
-    imu, gnss, truth, raw = _odo_world(with_earth)
-    jm = JGins(jparse(raw))
-    mp = pytest.MonkeyPatch()
-    mp.setattr(jest, "_solve_jit", _precise_solve_jit)
-    try:
-        jt = jm.run(imu, gnss)
-    finally:
-        mp.undo()
-    tm = TGins(tparse(raw), device="cpu")
-    tt = tm.run(imu, gnss)
-    assert tm.est.wcfg.with_odo and tm.est.wcfg.with_earth == with_earth and tm.est.mixes.shape[1] == 10
-    assert tm.state == jm.state == "INITIALIZING_INS"
-    assert tt.shape == jt.shape and len(tt) >= 10
-    np.testing.assert_array_equal(tt[:, 0], jt[:, 0])
-    np.testing.assert_allclose(tt[:, 1:4], jt[:, 1:4], atol=1e-8)
-    np.testing.assert_allclose(tt[:, 4:8], jt[:, 4:8], atol=1e-9)
-    np.testing.assert_allclose(tm.est.mixes[:, :3], jm.est.mixes[:, :3], atol=1e-8)
-    k = tm.est.n_nodes - 1
-    sodo = float(tm.est.mixes[k, 9])
-    np.testing.assert_allclose(sodo, float(jm.est.mixes[k, 9]), atol=1e-9)
-    idx = np.round(tt[2:, 0] * 200.0).astype(int) - 1
-    err = np.linalg.norm(tt[2:, 1:4] + truth["gnss_local"][0] - truth["p"][idx], axis=1)
-    assert err.mean() < 0.08, f"mean pos err {err.mean():.3f} m"
-    assert 0.2 * SCALE_ERR < sodo < 3.0 * SCALE_ERR, f"sodo {sodo:.5f}"
-    assert tm.est.check_time_consistency() == []
+def jax_odo_replays(out_path):
+    """The JAX replays of both odometer worlds (earth rate off, then on; the
+    solve in f64), one after the other in this process; pickles to
+    out_path, for each, its trajectory and what the twin test reads of the
+    model."""
+    out = {}
+    for with_earth in (False, True):
+        imu, gnss, truth, raw = _odo_world(with_earth)
+        jm = JGins(jparse(raw))
+        mp = pytest.MonkeyPatch()
+        mp.setattr(jest, "_solve_jit", _precise_solve_jit)
+        try:
+            jt = jm.run(imu, gnss)
+        finally:
+            mp.undo()
+        out[with_earth] = dict(traj=np.asarray(jt), state=jm.state, mixes=np.array(jm.est.mixes),
+                               n_nodes=jm.est.n_nodes)
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_odo_child(request, jax_compile_cache, tmp_path_factory):
+    """``jax_odo_replays`` in a child process (tests/test_torch_harness.py,
+    sync dispatch) started with the module, so that the JAX replays run
+    beside the preintegration and factor tests and the port's replays:
+    (child, pickle path), or None where no test of the module reads them.
+    Killed at the module's end if still running."""
+    if not module_reads(request, "jax_odo"):
+        yield None
+        return
+    out_path = str(tmp_path_factory.mktemp("jax_odo") / "jax_odo.pkl")
+    child = jax_child("test_torch_odo:jax_odo_replays", out_path)
+    yield child, out_path
+    kill_if_running(child)
 
 
 def test_chip_smoke_odo_world_matches_gins_data():
@@ -227,3 +237,45 @@ def test_chip_smoke_odo_world_matches_gins_data():
                 x, y = x[:, :2], y[:, :2]
             np.testing.assert_allclose(x, y, atol=1e-9, rtol=0, err_msg=k)
     assert np.abs(port_world[0]["odovel"]).max() > 0.005
+
+
+@pytest.fixture(scope="module")
+def jax_odo(jax_odo_child):
+    """``jax_odo_replays``' result for a world, the child waited for at the
+    first call, so that a test can run the port's replay first."""
+    out = []
+
+    def result(with_earth):
+        if not out:
+            out.append(jax_result(*jax_odo_child, timeout=ODO_CHILD_LIMIT))
+        return out[0][with_earth]
+    return result
+
+
+@pytest.mark.parametrize("with_earth", [False, True], ids=["odo", "earth_odo"])
+def test_odo_replay_matches_jax(with_earth, jax_odo):
+    """test_gins_e2e.py::test_odo_replay_converges (earth off) and
+    ::test_earth_odo_replay (earth on) on both packages: the port's
+    trajectory, velocities and odometer scale against the JAX twin (f64
+    solve, ``jax_odo_replays``, waited for after the port's replay), and
+    the JAX test's gates against the truth."""
+    imu, gnss, truth, raw = _odo_world(with_earth)
+    tm = TGins(tparse(raw), device="cpu")
+    tt = tm.run(imu, gnss)
+    jm = jax_odo(with_earth)
+    jt = jm["traj"]
+    assert tm.est.wcfg.with_odo and tm.est.wcfg.with_earth == with_earth and tm.est.mixes.shape[1] == 10
+    assert tm.state == jm["state"] == "INITIALIZING_INS"
+    assert tt.shape == jt.shape and len(tt) >= 10
+    np.testing.assert_array_equal(tt[:, 0], jt[:, 0])
+    np.testing.assert_allclose(tt[:, 1:4], jt[:, 1:4], atol=1e-8)
+    np.testing.assert_allclose(tt[:, 4:8], jt[:, 4:8], atol=1e-9)
+    np.testing.assert_allclose(tm.est.mixes[:, :3], jm["mixes"][:, :3], atol=1e-8)
+    k = tm.est.n_nodes - 1
+    sodo = float(tm.est.mixes[k, 9])
+    np.testing.assert_allclose(sodo, float(jm["mixes"][k, 9]), atol=1e-9)
+    idx = np.round(tt[2:, 0] * 200.0).astype(int) - 1
+    err = np.linalg.norm(tt[2:, 1:4] + truth["gnss_local"][0] - truth["p"][idx], axis=1)
+    assert err.mean() < 0.08, f"mean pos err {err.mean():.3f} m"
+    assert 0.2 * SCALE_ERR < sodo < 3.0 * SCALE_ERR, f"sodo {sodo:.5f}"
+    assert tm.est.check_time_consistency() == []

@@ -32,6 +32,7 @@ import torch
 
 import __graft_entry__ as ge
 import chip_smoke
+from test_torch_harness import jax_compile_cache  # noqa: F401 (autouse: the run's compile cache)
 from test_torch_preint import _check as check_summary
 from test_torch_tracking import _jax_table
 from ic_gvins_tpu.core import types as jtypes

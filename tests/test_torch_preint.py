@@ -8,6 +8,8 @@ import pytest
 import torch
 
 import synthetic as syn
+from test_torch_harness import jax_compile_cache  # noqa: F401 (autouse: the run's compile cache)
+
 from ic_gvins_tpu.core import earth as jearth
 from ic_gvins_tpu.core.types import ImuBatch as JImu
 from ic_gvins_tpu.core.types import IntegrationParams as JParams

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_harness import jax_compile_cache  # noqa: F401 (autouse: the run's compile cache)
 from test_vision_kernels import synth_image
 from ic_gvins_tpu.vision import pyramid as jpyr
 from ic_gvins_tpu_torch.vision import pyramid as tpyr

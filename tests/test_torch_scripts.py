@@ -27,6 +27,7 @@ import torch
 import chip_smoke
 from gins_data import make_gins_dataset
 from test_gvins_e2e import render_frame
+from test_torch_harness import jax_compile_cache  # noqa: F401 (autouse: the run's compile cache)
 from ic_gvins_tpu.core import quaternion as jquat
 from ic_gvins_tpu.vision import camera as jcam
 

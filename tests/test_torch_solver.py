@@ -13,6 +13,7 @@ import torch
 
 import __graft_entry__ as graft
 from test_lm import build_gins_problem, perturb
+from test_torch_harness import jax_compile_cache  # noqa: F401 (autouse: the run's compile cache)
 from ic_gvins_tpu.solver import lm as jlm
 from ic_gvins_tpu.solver import problem as jprob
 from ic_gvins_tpu_torch import convert

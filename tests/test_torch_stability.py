@@ -36,7 +36,8 @@ import torch
 import chip_smoke
 import test_gvins_stability_e2e as st
 from test_torch_gins import _precise_solve_jit
-from test_torch_gvins import jax_child, jax_result
+from test_torch_harness import jax_child, jax_result
+from test_torch_harness import jax_compile_cache  # noqa: F401 (autouse: the run's compile cache)
 from test_torch_scripts import _close_world
 from test_torch_td import Recorder, patched_fixture, replay_summary
 from test_torch_tracking import _jax_table

@@ -18,10 +18,12 @@ metres and the gate refuses it every time).
 Cut: the drive's turn is 6 s (a 12 s drive; 30 s in the JAX test), the
 shortest whole-second turn at which the JAX replay adopts td at least 3
 times (4 adoptions; a 5 s turn gives 2). The full horizon runs on the card
-in chip_smoke.py phase 11. This file takes 85-125 s alone on an 8-core
-CPU: the two JAX replays run in two child processes started with the
-module (~100 s of each is compiling), beside the world and yaw tests and
-the port's two replays (one child running both took ~180 s).
+in chip_smoke.py phase 11. The two JAX replays run one after the other in
+one child process started with the module (``jax_td_replays``), beside the
+world and yaw tests and the port's two replays; the second case takes the
+programs the first compiled. Alone on an 8-core CPU that child took 155.6 s
+and 365.2 s of CPU time, against 145.0 s and 526.7 s for two children at
+once without the compile cache, with the same results bit for bit.
 
 Tolerances, each against the JAX twin:
 - the state and node count after every frame, the frames, keyframe
@@ -65,7 +67,8 @@ import chip_smoke
 import test_td_estimation as tde
 from gins_data import make_gins_dataset
 from test_torch_gins import _precise_solve_jit
-from test_torch_gvins import jax_child, jax_result
+from test_torch_harness import jax_child, jax_result, kill_if_running, module_reads
+from test_torch_harness import jax_compile_cache  # noqa: F401 (autouse: the run's compile cache)
 from test_torch_scripts import _close_world
 from test_torch_tracking import _jax_table
 from ic_gvins_tpu.engine import estimator as jest
@@ -78,6 +81,7 @@ torch.set_num_threads(1)
 TURN = 6.0
 CASES = {"td": {}, "td+extrinsic": {"optimize_estimate_extrinsic": True}}
 TWIN = dict(pos=5e-5, att=2e-5, vel=2e-5, td=1e-6, ext=1e-6, ext_estimate=1e-3)
+TD_CHILD_LIMIT = 460   # s: ~3x the JAX child's wall alone on an 8-core CPU (153.5 s, both cases)
 
 
 class Recorder:
@@ -143,10 +147,10 @@ def replay_summary(model, traj, log, truth=None):
                 counts=log.counts, failures=log.failures, episodes=log.episodes, truth=truth)
 
 
-def jax_td_replay(outdir, out_path, case):
+def jax_td_replay(outdir, case):
     """The JAX test's fixture body at TURN for ``case`` (its solve in f64),
-    the model with output files into outdir and an EstimationLog; pickles
-    its summary to out_path."""
+    the model with output files into outdir and an EstimationLog: its
+    summary."""
     logs = []
 
     def make(cfg):
@@ -160,8 +164,16 @@ def jax_td_replay(outdir, out_path, case):
         _, (model, traj, _) = _td_fixture(mp, TURN, CASES[case], make)
     finally:
         mp.undo()
+    return replay_summary(model, traj, logs[0])
+
+
+def jax_td_replays(out_path, *outdirs):
+    """``jax_td_replay`` of each case of CASES, its output files into the
+    matching one of ``outdirs``, one after the other in this process (the
+    later case takes the programs the first compiled); pickles {case:
+    summary} to out_path."""
     with open(out_path, "wb") as f:
-        pickle.dump(replay_summary(model, traj, logs[0]), f)
+        pickle.dump({case: jax_td_replay(d, case) for case, d in zip(CASES, outdirs)}, f)
 
 
 def port_td_replay(outdir, raw, imu, gnss, frame_times, images):
@@ -222,26 +234,24 @@ def test_dual_antenna_yaw_through_gvins():
 
 
 @pytest.fixture(scope="module", autouse=True)
-def jax_twins(tmp_path_factory):
-    """The JAX replays of both cases, each in a child process started with
-    the module, so that they compile while the tests before the twin test
-    run: {case: (child, outdir, pickle path)}. Killed at the module's end
-    if still running."""
-    kids = {}
-    for case in CASES:
-        d = str(tmp_path_factory.mktemp(f"jax_{case}"))
-        out = os.path.join(d, "jax_td.pkl")
-        kids[case] = (jax_child("test_torch_td:jax_td_replay", d, out, case), d, out)
-    yield kids
-    for child, _, _ in kids.values():
-        if child.poll() is None:
-            child.kill()
-            child.communicate()
+def jax_twins(request, jax_compile_cache, tmp_path_factory):
+    """``jax_td_replays`` in a child process started with the module, so
+    that the JAX replays run while the tests before the twin test run:
+    (child, pickle path, {case: outdir}), or None where no test of the
+    module reads them. Killed at the module's end if still running."""
+    if not module_reads(request, "twins"):
+        yield None
+        return
+    dirs = {case: str(tmp_path_factory.mktemp(f"jax_{case}")) for case in CASES}
+    out_path = os.path.join(dirs["td"], "jax_td.pkl")
+    child = jax_child("test_torch_td:jax_td_replays", out_path, *dirs.values())
+    yield child, out_path, dirs
+    kill_if_running(child)
 
 
 @pytest.fixture(scope="module")
 def twins(jax_twins, tmp_path_factory):
-    """Both cases: the port's replays here while the JAX children run.
+    """Both cases: the port's replays here while the JAX child runs.
     Returns {case: (jax summary, port summary, jax outdir, port outdir)}."""
     out = {}
     try:
@@ -251,8 +261,9 @@ def twins(jax_twins, tmp_path_factory):
             d = str(tmp_path_factory.mktemp(f"port_{case}"))
             out[case] = port_td_replay(d, raw, imu, gnss, frame_times, images), d
     finally:
-        jax_out = {case: jax_result(child, path) for case, (child, _, path) in jax_twins.items()}
-    return {case: (jax_out[case], out[case][0], jax_twins[case][1], out[case][1]) for case in CASES}
+        child, out_path, dirs = jax_twins
+        jax_out = jax_result(child, out_path, timeout=TD_CHILD_LIMIT)
+    return {case: (jax_out[case], out[case][0], dirs[case], out[case][1]) for case in CASES}
 
 
 def _extrinsic_rows(outdir):

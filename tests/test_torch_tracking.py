@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_harness import jax_compile_cache  # noqa: F401 (autouse: the run's compile cache)
 from test_tracking import make_scene, render, small_camera
 from ic_gvins_tpu.engine.config import parse_config as jparse
 from ic_gvins_tpu.vision import map as jmap

@@ -19,6 +19,7 @@ import torch
 
 import chip_smoke
 from test_marginalization import CFG, build_world, make_tables
+from test_torch_harness import jax_compile_cache  # noqa: F401 (autouse: the run's compile cache)
 from test_tracking import make_scene, render, small_camera
 from test_torch_tracking import CFG as TRACK_CFG
 from test_torch_tracking import _jax_table, _run
