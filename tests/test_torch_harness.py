@@ -15,12 +15,16 @@ started inside a port module compiles into the run's cache, as the module
 does, while this process's environment stays as it was; the cache setting
 is undone on the way out of a module; the run's last user of the cache
 removes it; a module starts its children only where a selected test reads
-them.
+them; every module whose module fixture starts a JAX child queues after
+tests/test_gvins_long_e2e.py.
 """
 
+import ast
+import collections
 import contextlib
 import fcntl
 import os
+import pathlib
 import pickle
 import shutil
 import subprocess
@@ -47,7 +51,7 @@ _JAX_CHILD = ("import importlib, sys; sys.path[:0] = sys.argv[1:3]; import conft
 # run. A cache entry takes a small compile too: the twins' worlds and
 # estimators are many small programs that every process compiles again.
 # A child's threads are not bounded: with XLA's Eigen pool off and one
-# BLAS thread the JAX replay of tests/test_torch_gvins.py took 188.6 s
+# BLAS thread the JAX replay of tests/test_torch_gvins_twin.py took 188.6 s
 # alone instead of 143.6 s and no less CPU time (342.7 s against 319.0 s),
 # its positions moved by 1.1e-11 m, and its compiles would key apart from
 # the workers' in the cache (XLA_FLAGS is part of the key).
@@ -101,6 +105,37 @@ def module_reads(request, fixture):
     """Whether a test of the requesting module that this session runs uses
     ``fixture``: a module fixture starts a JAX child only then."""
     return any(fixture in item.fixturenames for item in request.session.items if item.module is request.module)
+
+
+# The run's longest file, a JAX replay of a 120 s world. With pytest-xdist's
+# ``--dist loadfile`` the files queue by their count of selected tests, most
+# first, ties in collection order (by path); each worker starts with up to
+# two and takes the next when at most two of its tests are pending. A module
+# that waits on a JAX child therefore holds no more tests than this file and
+# sorts after it, so that its wait does not hold back the replay's start.
+LONG_REPLAY = "test_gvins_long_e2e.py"
+
+
+def _module_fixture(func):
+    """Whether ``func`` is decorated ``@pytest.fixture(scope="module", ...)``."""
+    return any(isinstance(d, ast.Call) and ast.unparse(d.func) == "pytest.fixture"
+               and any(k.arg == "scope" and ast.literal_eval(k.value) == "module" for k in d.keywords)
+               for d in func.decorator_list)
+
+
+def starts_children(path):
+    """Whether the test module at ``path`` has a module-scoped fixture that
+    starts a JAX child: one that calls ``jax_child``, itself or through
+    functions of the module."""
+    tree = ast.parse(pathlib.Path(path).read_text())
+    funcs = {f.name: f for f in tree.body if isinstance(f, ast.FunctionDef)}
+    calls = {name: {c.func.id for c in ast.walk(f) if isinstance(c, ast.Call) and isinstance(c.func, ast.Name)}
+             for name, f in funcs.items()}
+    reach, more = set(), {"jax_child"}
+    while more:
+        reach |= more
+        more = {name for name, called in calls.items() if called & reach} - reach
+    return any(name in reach and _module_fixture(f) for name, f in funcs.items())
 
 
 def _cache_users(root, path, delta):
@@ -250,3 +285,19 @@ def test_children_start_only_for_modules_that_read_them():
     assert not module_reads(request, "replays")
     request.session.items.pop()
     assert not module_reads(request, "twins")
+
+
+def test_child_modules_queue_after_the_long_replay(request):
+    """Every selected module whose module fixture starts a JAX child holds
+    no more selected tests than tests/test_gvins_long_e2e.py and sorts after
+    it, so that xdist's loadfile queue hands it out after that file."""
+    assert starts_children(os.path.join(TESTS, "test_torch_faults.py"))         # through a helper
+    assert starts_children(os.path.join(TESTS, "test_torch_gvins_twin.py"))
+    assert not starts_children(os.path.join(TESTS, "test_torch_gvins.py"))
+    counts = collections.Counter(item.path.name for item in request.session.items)
+    if LONG_REPLAY not in counts:
+        pytest.skip(f"{LONG_REPLAY} is not selected")
+    paths = {item.path.name: item.path for item in request.session.items}
+    waiting = [name for name, path in sorted(paths.items()) if starts_children(path)]
+    late = {name: counts[name] for name in waiting if counts[name] > counts[LONG_REPLAY] or name < LONG_REPLAY}
+    assert not late, f"modules that start a JAX child queue ahead of {LONG_REPLAY} ({counts[LONG_REPLAY]}): {late}"

@@ -14,7 +14,7 @@ The slow tests (``-m slow -s``, they print what ROADMAP R1 records):
   window slide of more than ``marg_cap`` nodes after the frame at 40.25 s,
   as the JAX package refuses such a slide, so the gates fail: the failure
   is left standing (ROADMAP R1);
-- the JAX replay (its solve in f64, as tests/test_torch_gvins.py patches
+- the JAX replay (its solve in f64, as tests/test_torch_gvins_twin.py patches
   it; in that file's child process with async dispatch off) and the port's (the JAX
   RANSAC table), on the in-memory world and on the world as the port's
   loaders read it back from the files. In memory they agree on every frame

@@ -7,7 +7,7 @@ Both replays run that test's own fixture body (``td_run``), its
 GvinsModel given an output directory and ``chip_smoke.EstimationLog`` (the
 JAX tests' hooks wrapped on the instance): the JAX ones in child processes
 with the CPU client's async dispatch off and its solve in f64 (as
-tests/test_torch_gvins.py runs it), the port's here on the same numpy
+tests/test_torch_gvins_twin.py runs it), the port's here on the same numpy
 world, its RANSAC drawing the JAX package's hypothesis table. Two cases:
 ``td``, the test's configuration verbatim (extrinsic estimation off), and
 ``td+extrinsic``, the same world with extrinsic estimation on as well (the
@@ -34,11 +34,11 @@ Tolerances, each against the JAX twin:
 - td after every episode within 1e-6 s;
 - node times within 1e-6 s: a keyframe node sits at its frame's stamp plus
   the td adopted then, so node times carry td's difference (observed
-  2.5e-8 s), not equal as in tests/test_torch_gvins.py, where td is fixed
+  2.5e-8 s), not equal as in tests/test_torch_gvins_twin.py, where td is fixed
   (td itself: observed 2.5e-8 s with extrinsic estimation off, 4.3e-7 s
   with it on, where the unobservable extrinsic columns amplify rounding);
 - positions 5e-5 m, attitudes (quaternion components) 2e-5, velocities 2e-5
-  m/s, as tests/test_torch_gvins.py (ROADMAP P1; observed 2.0e-7 m,
+  m/s, as tests/test_torch_gvins_twin.py (ROADMAP P1; observed 2.0e-7 m,
   2.4e-8, 1.3e-7 m/s);
 - the adopted extrinsic within 1e-6; extrinsic.txt rows: time and td within
   1e-6, the estimate's translation (m) and Euler angles (degrees) within
