@@ -12,8 +12,6 @@ the host needs in one transfer (``host.fetch``). The marginalization prior
 stays on the device.
 """
 
-import time
-
 import numpy as np
 import torch
 
@@ -33,6 +31,7 @@ from ..solver.problem import (
     WindowParams,
     empty_preint_summary,
 )
+from ..utils import timecost
 from .host import fetch, upload
 
 MINIMUM_TIME_INTERVAL = 1.0e-4
@@ -129,7 +128,7 @@ class SlidingWindowEstimator:
         self.ext = np.concatenate([np.zeros(3), np.array([0, 0, 0, 1.0])])
         self.td = 0.0
         self.invdepths = np.full(wcfg.L, 0.1)  # of the last solve, at its tier
-        self.last_solve_times = (0.0, 0.0)  # (pass1 s, pass2 s), set by optimize
+        self.last_solve_times = (0.0, 0.0)  # (pass 1 s, surgery + pass 2 s), set by optimize
         self.last_iterations = (0, 0)       # accepted LM steps (pass 1, pass 2), set by optimize
 
     # ------------------------------------------------------------------
@@ -368,20 +367,19 @@ class SlidingWindowEstimator:
         tables = self.build_tables(wc=wc) if tables is None else tables
         params = self.build_params(wc=wc) if params is None else params
         if two_pass:
-            # pass 1 / surgery / pass 2 timed apart (statistics.txt cols 10-11,
-            # ic_gvins.cc:1019-1022): n/4 robust, the rest de-robustified.
-            # Each solve ends in its last `done` read, so the clock brackets
-            # the device work too.
+            # pass 1 / surgery / pass 2 timed apart (statistics.txt cols 10-11:
+            # pass 1, then surgery + pass 2, ic_gvins.cc:1019-1022): n/4
+            # robust, the rest de-robustified. Each solve ends in its last
+            # `done` read, so the spans bracket the device work too.
             n1 = max(num_iterations // 4, 1)
             n2 = max(num_iterations - n1, 1)
-            t0 = time.perf_counter()
-            params, s1, _ = lm.solve(params, tables, wc, n1)
-            t_pass1 = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            tables2, n_gnss_out, n_reproj_out = lm.outlier_surgery(params, tables, wc)
-            params, s2, _ = lm.solve(params, tables2, wc, n2)
-            t_pass2 = time.perf_counter() - t0
-            self.last_solve_times = (t_pass1, t_pass2)
+            with timecost.Span("lm.pass1") as pass1:
+                params, s1, _ = lm.solve(params, tables, wc, n1)
+            with timecost.Span("lm.surgery") as surgery:
+                tables2, n_gnss_out, n_reproj_out = lm.outlier_surgery(params, tables, wc)
+            with timecost.Span("lm.pass2") as pass2:
+                params, s2, _ = lm.solve(params, tables2, wc, n2)
+            self.last_solve_times = (pass1.seconds, surgery.seconds + pass2.seconds)
             stats = (s1, s2, n_gnss_out, n_reproj_out)
             g = tables2.gnss
             stds, idxs, valid, it1, it2 = self._store_params(params, g.std, g.idx, g.valid,
@@ -422,6 +420,7 @@ class SlidingWindowEstimator:
         self._preintegrate(np.nonzero(need)[0])
         return int(need.sum())
 
+    @timecost.traced("marg.schur")
     def marginalize(self, num_marg, oldest_kf_node=0, tables=None, params=None, wc=None):
         """Marginalize nodes [0, num_marg) and shift the window left. Returns
         the (device) mask of marginalized landmarks. wc: the tier of

@@ -5,18 +5,22 @@ Every value the host needs from the device on the replay path (a solver's
 comes through :func:`fetch`: one transfer for all the tensors a caller
 needs at that point, and ``fetch.reads`` counts the transfers, as the
 kernel wrappers count their launches. On the card each read is a
-synchronization of the host with the device.
+synchronization of the host with the device; the tracer's ``host.fetch``
+span times the host's wait.
 """
 
 import numpy as np
 import torch
+
+from ..utils import timecost
 
 
 def fetch(*tensors):
     """numpy float64 copies of ``tensors`` in one device -> host transfer.
     The arrays own their memory: writing to them never reaches a tensor."""
     fetch.reads += 1
-    flat = torch.cat([t.detach().reshape(-1).to(torch.float64) for t in tensors]).cpu().numpy()
+    with timecost.span("host.fetch"):
+        flat = torch.cat([t.detach().reshape(-1).to(torch.float64) for t in tensors]).cpu().numpy()
     out, o = [], 0
     for t in tensors:
         n = t.numel()

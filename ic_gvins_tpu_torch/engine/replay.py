@@ -15,6 +15,7 @@ import torch
 
 from ..core.types import ImuBatch, NavState
 from ..ins import mechanization as mech
+from ..utils import timecost
 from .host import fetch
 
 MINIMUM_TIME_INTERVAL = 1.0e-4
@@ -158,6 +159,7 @@ class InsPropagator:
     def update_iewn(self, iewn):
         self.iewn = torch.tensor(np.asarray(iewn, np.float64), device=self.device)
 
+    @timecost.traced("ins.propagate")
     def propagate_to(self, t_end, sample_cb=None):
         """Mechanize through all whole samples with time <= t_end. Calls
         sample_cb(times, p, q, v) (numpy, one device read per chunk) for

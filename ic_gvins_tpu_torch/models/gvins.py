@@ -20,7 +20,6 @@ and GNSS stds per optimization episode.
 """
 
 import math
-import time
 
 import numpy as np
 import torch
@@ -30,6 +29,7 @@ from ..engine.config import GvinsConfig
 from ..engine.output import OutputFiles
 from ..engine.replay import ImuStream
 from ..solver.problem import WindowConfig
+from ..utils import timecost
 from ..vision import camera as vcam
 from ..vision.map import (
     FARTHEST_DEPTH,
@@ -120,7 +120,9 @@ class GvinsModel(GinsModel):
                         self._drain_pending_gnss(stream)
                 elif self.state not in ("INITIALIZING", "INITIALIZING_INS") \
                         and t + self.td_b_c < stream.time[-1] - 0.02:
-                    self._process_frame(stream, t, image_provider(item))
+                    image = image_provider(item)
+                    with timecost.span("frame", frame=item):
+                        self._process_frame(stream, t, image)
 
             if self.prop is not None:
                 self.prop.propagate_to(float(stream.time[-1]), sample_cb=self._write_samples if self.out else None)
@@ -207,7 +209,8 @@ class GvinsModel(GinsModel):
         self._remove_second_new_frames()
         while self.vmap.is_maximum_keyframes():
             self._marginalize_visual()
-        self._write_statistics()
+        with timecost.span("stats.write"):
+            self._write_statistics()
 
         # feedback to INS (isoptimized_ path)
         st = self.est.latest_state()
@@ -216,9 +219,11 @@ class GvinsModel(GinsModel):
         self.prop.set_state(st)
         self.trajectory.append([st.time, *st.p, *st.q])
         if self.tracker.logging_row is not None and self.out:
-            row = self.tracker.logging_row + [len(self.tracker.frame_cur.features), self.tracker.track_ms]
-            self.out.write_tracking(row)
+            with timecost.span("stats.write"):
+                row = self.tracker.logging_row + [len(self.tracker.frame_cur.features), self.tracker.track_ms]
+                self.out.write_tracking(row)
 
+    @timecost.traced("nodes.add")
     def _add_keyframe_nodes(self, stream):
         """addNewKeyFrameTimeNode (ic_gvins.cc:724-752)."""
         while self.keyframe_queue:
@@ -274,6 +279,7 @@ class GvinsModel(GinsModel):
     # GNSS node insertion (ic_gvins.cc:791-888)
     # ------------------------------------------------------------------
 
+    @timecost.traced("gnss.drain")
     def _drain_pending_gnss(self, stream):
         self.pending_gnss = [g for g in self.pending_gnss if not self._insert_gnss_node(stream, g)]
 
@@ -365,6 +371,7 @@ class GvinsModel(GinsModel):
             return wc_small, reproj[:wc_small.R], invdepths[:wc_small.L], lm_valid[:wc_small.L]
         return self.est.wcfg, reproj, invdepths, lm_valid
 
+    @timecost.traced("marg.tables")
     def _fresh_tables_and_params(self):
         """Rebuild factor tables + params from the CURRENT window structure.
         Node indices shift whenever second-new nodes merge or the window
@@ -469,23 +476,25 @@ class GvinsModel(GinsModel):
             packed[:nrows, 17] = 1.0
         return packed, nrows
 
+    @timecost.traced("ep.optimize")
     def _optimize_visual(self):
         est = self.est
         # sync extrinsic into the estimator parameters
         est.ext = np.concatenate([self.pose_b_c_t, rotation_np.from_matrix(self.pose_b_c_R)])
         est.td = self.td_b_c
 
-        slots, invdepths, lm_valid = self._assign_landmark_slots()
-        reproj, nrows = self._build_reproj_table(slots)
-        wc, reproj, invdepths, lm_valid = self._tier(slots, nrows, reproj, invdepths, lm_valid)
-        self.tier_counts["small" if wc is est.wcfg_small else "full"] += 1
+        with timecost.span("ep.tables"):
+            slots, invdepths, lm_valid = self._assign_landmark_slots()
+            reproj, nrows = self._build_reproj_table(slots)
+            wc, reproj, invdepths, lm_valid = self._tier(slots, nrows, reproj, invdepths, lm_valid)
+            self.tier_counts["small" if wc is est.wcfg_small else "full"] += 1
 
-        estimating = self.state == "TRACKING_NORMAL"
-        tables = est.build_tables(ext_active=self.cfg.optimize_estimate_extrinsic and estimating,
-                                  td_active=self.cfg.optimize_estimate_td and estimating,
-                                  reproj_table=reproj, reproj_sqrt_info=self.reproj_sqrt_info,
-                                  lm_valid=lm_valid, wc=wc)
-        params = est.build_params(invdepths=invdepths, wc=wc)
+            estimating = self.state == "TRACKING_NORMAL"
+            tables = est.build_tables(ext_active=self.cfg.optimize_estimate_extrinsic and estimating,
+                                      td_active=self.cfg.optimize_estimate_td and estimating,
+                                      reproj_table=reproj, reproj_sqrt_info=self.reproj_sqrt_info,
+                                      lm_valid=lm_valid, wc=wc)
+            params = est.build_params(invdepths=invdepths, wc=wc)
         # the solved poses, mixes, ext, td, invdepths and each pass's
         # iterations come back to the host mirrors in one read
         est.optimize(num_iterations=self.cfg.optimize_num_iterations, two_pass=True, tables=tables,
@@ -496,11 +505,12 @@ class GvinsModel(GinsModel):
         self.timecosts[0] = est.last_solve_times[0] * 1000.0
         self.timecosts[1] = est.last_solve_times[1] * 1000.0
 
-        if not self.vmap.is_maximum_keyframes():
-            est.reintegrate_if_needed()
-
-        self._update_from_optimizer(slots)
-        self._visual_outlier_culling(slots)
+        with timecost.span("ep.update"):
+            if not self.vmap.is_maximum_keyframes():
+                est.reintegrate_if_needed()
+            self._update_from_optimizer(slots)
+        with timecost.span("ep.cull"):
+            self._visual_outlier_culling(slots)
 
     def _update_from_optimizer(self, slots):
         """updateParametersFromOptimizer (ic_gvins.cc:1299-1389), from the
@@ -622,6 +632,7 @@ class GvinsModel(GinsModel):
     # window maintenance
     # ------------------------------------------------------------------
 
+    @timecost.traced("ep.remove")
     def _remove_second_new_frames(self):
         """gvinsRemoveAllSecondNewFrame (ic_gvins.cc:1391-1410)."""
         ordered = self.vmap.ordered_keyframes()
@@ -639,14 +650,15 @@ class GvinsModel(GinsModel):
                 self.vmap.remove_keyframe(f, remove_mappoints=False)
 
     def _marginalize_visual(self):
-        """gvinsMarginalization (ic_gvins.cc:1412-1678). Wall time (table
-        rebuild + Schur complement) recorded in timecosts[2]
-        (statistics.txt col 12)."""
-        t0 = time.perf_counter()
+        """gvinsMarginalization (ic_gvins.cc:1412-1678). Wall time of its
+        ``marg`` span (table rebuild + Schur complement) recorded in
+        timecosts[2] (statistics.txt col 12)."""
+        whole = timecost.Span("marg")
         try:
-            self._marginalize_visual_impl()
+            with whole:
+                self._marginalize_visual_impl()
         finally:
-            self.timecosts[2] = (time.perf_counter() - t0) * 1000.0
+            self.timecosts[2] = whole.ms
 
     def _marginalize_visual_impl(self):
         ordered = self.vmap.ordered_keyframes()

@@ -106,17 +106,23 @@ def _step(params: WindowParams, tables: FactorTables, cost, radius, cfg: WindowC
 def solve(params: WindowParams, tables: FactorTables, cfg: WindowConfig, max_iterations: int,
           radius0=1e4, ftol=1e-6):
     """Run up to ``max_iterations`` LM steps; returns (params, stats, radius).
-    ``ftol`` is Ceres' function_tolerance (relative-decrease stop)."""
+    ``ftol`` is Ceres' function_tolerance (relative-decrease stop).
+    ``solve.steps`` counts the iterations run."""
     init_cost = total_cost(params, tables, cfg)
     cost = init_cost
     radius = torch.tensor(radius0, dtype=init_cost.dtype, device=init_cost.device)
     accepted = torch.zeros((), dtype=torch.long, device=init_cost.device)
     for _ in range(max_iterations):
+        _solve.steps += 1
         params, cost, radius, ok, done = _step(params, tables, cost, radius, cfg, ftol)
         accepted = accepted + ok.long()
         if fetch(done)[0]:
             break
     return params, SolveStats(iterations=accepted, initial_cost=init_cost, final_cost=cost), radius
+
+
+solve.steps = 0   # LM iterations run, accepted or not
+_solve = solve    # counts on, whatever later wraps the module's ``solve``
 
 
 def outlier_surgery(params: WindowParams, tables: FactorTables, cfg: WindowConfig):

@@ -23,12 +23,12 @@ Constants (tracking.h:112-115): 200 px detection blocks, 3+1 pyramid levels,
 """
 
 import math
-import time
 
 import numpy as np
 import torch
 
 from ..core import rotation_np
+from ..utils import timecost
 from . import camera as cam
 from . import features as feat
 from . import lk, pyramid, ransac
@@ -62,6 +62,7 @@ TRACK_LOST = 4
 # --------------------------------------------------------------------------
 
 
+@timecost.traced("track.pyramid")
 def _pyr_body(img):
     """CLAHE + 4-level pyramid + the image mean (the histogram-gate
     centroid, tracking.cc:88-105, equals mean/256)."""
@@ -210,6 +211,7 @@ class Tracker:
         d = pc01[:, :2] / pc01[:, 2:3] - pc1[:, :2]
         return np.linalg.norm(d, axis=1) * float(self.cam.focal_length)
 
+    @timecost.traced("track.lk")
     def _lk_fused(self, sets):
         """ONE bidirectional LK over several feature sets packed into a
         single padded table (landmark tracks + reference tracks,
@@ -258,14 +260,15 @@ class Tracker:
 
     def track(self, frame: VFrame, image):
         """image: (H,W) grayscale (0..255), a numpy array or a tensor. Wall
-        time of the whole call is recorded in ``track_ms`` (tracking.txt
-        col 7, tracking.cc:309-315); every stage ends in a host read, so the
-        device work of the frame is inside it."""
-        t0 = time.perf_counter()
+        time of the whole call (its ``track.frame`` span) is recorded in
+        ``track_ms`` (tracking.txt col 7, tracking.cc:309-315); every stage
+        ends in a host read, so the device work of the frame is inside it."""
+        whole = timecost.Span("track.frame")
         try:
-            return self._track_impl(frame, image)
+            with whole:
+                return self._track_impl(frame, image)
         finally:
-            self.track_ms = (time.perf_counter() - t0) * 1000.0
+            self.track_ms = whole.ms
 
     def _track_impl(self, frame: VFrame, image):
         self.is_new_keyframe = False
@@ -512,10 +515,11 @@ class Tracker:
         if len(pts_cur) >= 15:
             p0, v0 = self._pad(und_new)
             p1, _ = self._pad(und_cur)
-            inl, _ = ransac.fundamental_ransac(
-                self._dev(p0, torch.float64), self._dev(p1, torch.float64),
-                self._dev(v0, torch.float64), float(self.reproj_std))
-            keep = _np(inl)[: len(pts_cur)]
+            with timecost.span("track.geometry"):
+                inl, _ = ransac.fundamental_ransac(
+                    self._dev(p0, torch.float64), self._dev(p1, torch.float64),
+                    self._dev(v0, torch.float64), float(self.reproj_std))
+                keep = _np(inl)[: len(pts_cur)]
             pts_cur = pts_cur[keep]
             und_cur = und_cur[keep]
             vel_cur = vel_cur[keep]
@@ -560,6 +564,7 @@ class Tracker:
             self.logging_row = [self.frame_cur.stamp, dt, parallax, rel_t, rel_r]
         return state
 
+    @timecost.traced("track.geometry")
     def triangulation(self):
         """tracking.cc:690-798."""
         pts_cur = getattr(self, "pts_cur", None)
@@ -675,6 +680,7 @@ class Tracker:
             err = np.linalg.norm(proj - und_px, axis=-1)
         return depth_ok & np.isfinite(err) & (err <= self.reproj_std * scale)
 
+    @timecost.traced("track.detect")
     def features_detection(self, frame, ismask=True):
         """tracking.cc:576-688."""
         num_features = len(frame.features) + len(self.pts_ref)
